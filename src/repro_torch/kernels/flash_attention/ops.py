@@ -1,0 +1,93 @@
+"""Streaming-softmax attention on (BH, S, hd).
+
+Replaces the TPU kernel
+``repro/kernels/flash_attention/flash_attention.py:flash_attention_bhsd``
+with ``csrc/flash_attention.cu`` (the source says what bounds it on the
+H100 and how the design answers that).  Any S and any hd up to 256 (144
+after pruning) launch the kernel; the reference wrapper falls back to
+its oracle when S is not a multiple of 128.
+
+:func:`flash_attention_bhsd` dispatches on the tensor's device: a CUDA
+tensor launches the kernel (counted in
+``flash_attention_bhsd.launches``, and by shape in
+``flash_attention_bhsd.shapes``), a CPU tensor runs
+:func:`flash_attention_plain`.
+"""
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+
+from repro_torch.kernels import build
+
+DTYPES = (torch.float32, torch.bfloat16)
+HD_MAX = 256
+NEG_INF = -1e30
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0
+                          ) -> torch.Tensor:
+    """The plain PyTorch version (the reference's ``ref.py``): dense
+    softmax in fp32, masked scores at -1e30, output in q's dtype."""
+    hd = q.shape[-1]
+    Sq, Skv = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (hd ** -0.5)
+    if causal or window > 0:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= (qpos - kpos) < window
+        s = torch.where(ok[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0
+                         ) -> torch.Tensor:
+    """q (BH, Sq, hd); k, v (BH, Skv, hd) -> (BH, Sq, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} are not (BH, S, hd)")
+    BH, Sq, hd = q.shape
+    Skv = k.shape[1]
+    if BH > 65535:
+        raise ValueError(f"BH={BH} exceeds the kernel grid's 65535")
+    if not 1 <= hd <= HD_MAX:
+        raise ValueError(f"head dim {hd} outside the kernel's 1..{HD_MAX}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the "
+                         f"kernel takes float32 or bfloat16, one for all")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()) \
+            or k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be contiguous and on one device")
+    o = torch.empty_like(q)
+    if BH == 0 or Sq == 0:
+        return o
+    if Skv == 0:
+        raise ValueError("attention over zero keys")
+    lib = build.library()
+    err = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), BH, Sq, Skv, hd, int(causal),
+                                int(window), int(q.dtype == torch.bfloat16),
+                                build.stream_handle(q.device))
+    build.check(err, "flash_attention_bhsd")
+    flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.shapes[(BH, Sq, Skv, hd, bool(causal), int(window),
+                                 str(q.dtype).removeprefix("torch."))] += 1
+    return o
+
+
+flash_attention_bhsd.launches = 0
+# (BH, Sq, Skv, hd, causal, window, dtype) -> launches
+flash_attention_bhsd.shapes = Counter()
