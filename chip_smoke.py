@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/H100 port (``src/repro_torch``).
 
-  python3 chip_smoke.py [--out DIR]
+  python3 chip_smoke.py [--out DIR] [--profile]
 
 Needs one CUDA card; imports neither JAX nor the JAX package.  Phases,
 one JSON line each on stdout (every kernel case, with its error,
@@ -13,32 +13,59 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
 3. serve    ``python -m repro_torch.serve`` on a full-width CIFAR10_UNET
             checkpoint with random weights at 1/sqrt(fan_in) scale (16
             requests, 8 slots, 10 steps), dense and at
-            ``--prune-ratio 0.44``.  Every kernel's counters (``.launches``
-            and the per-shape ``.shapes``) are set to 0 just before each
-            run and read just after it;
-4. kernels  every kernel against its plain PyTorch version on the card at
-            each shape the two serving runs launched it with, plus masked
-            cases (ratios 0 / 0.44 / 0.9, a fully masked N-block) and
-            attention at hd=144, causal and windowed, in fp32 with TF32
-            off and in bf16, each with its tolerance and its time beside
-            the plain version, the library call and the bound;
-5. forward  one full-width U-Net forward through the kernels against the
+            ``--prune-ratio 0.44``;
+4. train    the port's ``FedPhD`` trains full-width CIFAR10_UNET in fp32
+            (TF32 off): 320 synthetic CIFAR-10-like images, 2 classes
+            per client over 4 clients, batch 32, 2 edges, 3 rounds
+            (R_s = 2): round 1 sparse (Omega), round 2 plain on the dense
+            model and pruned at 0.44 at its cloud aggregation, round 3
+            on the compacted model; 24 local steps.  The data scale, the
+            client count and the rounds are cut; widths and depth are not.
+            The first step's time is given on its own; the step p50/p99
+            and images/s are over the 23 steps after it, and a p50 is
+            given for each round;
+5. kernels  every kernel against its plain PyTorch version on the card at
+            each shape the serving and training runs launched it with
+            (the matmul's forward and backward-dx launches alike), plus
+            masked cases (ratios 0 / 0.44 / 0.9, a fully masked N-block)
+            and attention at hd=144, causal and windowed, in the dtype
+            each ran (fp32, TF32 off) and in bf16 at the serving shapes
+            and the largest training shapes, each with its tolerance and
+            its time beside the plain version, the library call and the
+            bound;
+6. forward  one full-width U-Net forward through the kernels against the
             same forward through the plain versions (on CPU copies of the
             weights and inputs, so device dispatch picks them), dense and
-            with 0.44 masks.
+            with 0.44 masks;
+7. grad     one full-width loss and gradient at batch 4 with injected t
+            and eps, through the kernels against the plain versions on
+            CPU copies: the dense model with Omega, as in a sparse round,
+            and the compacted model.  Every leaf is held to GRAD_TOL of
+            the largest plain gradient, and every leaf of at least
+            GRAD_LEAF_FLOOR of it also to GRAD_LEAF_TOL of its own;
+8. profile  only with ``--profile``: the training run once more under
+            ``torch.profiler``, its device time by kernel and category
+            and the device's idle share; the training trace for work on
+            the step's speed (the profiler's post-processing adds ~4 min).
+
+Every kernel's counters (``.launches``, the per-shape ``.shapes`` and
+the matmul's ``.dx_shapes``) are set to 0 just before each serving run
+and the training run, and read just after it.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  In the kernels line the main path is
-the serving run at ``--prune-ratio 0.44``, the one run that reaches all
-three kernels: ``launches`` is its count, and ``ms``, ``plain_ms``,
+the training run, the system's own path, which reaches all three
+kernels: ``launches`` is its count, and ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over its launches of each
-shape's time (count x time per launch).  ``paths`` gives the same for the
-dense and the pruned run each.  Any failure exits nonzero before the
-last line.
+shape's time (count x time per launch).  ``paths`` gives the same for
+the dense and pruned serving runs and the training run, the matmul's
+training launches also split into forward and dx.  Any failure exits
+nonzero before the last line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,8 +80,19 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}             # x max|plain|
 FORWARD_TOL = 1e-4                                    # x max|plain|
-PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
-MAIN_PATH = "pruned"
+# x the largest |plain| gradient of any leaf: the gradients of the
+# biases feeding a GroupNorm are differences of near-equal sums (zero in
+# exact arithmetic for the last block's), so a leaf's own max is no scale
+GRAD_TOL = 1e-4
+# x the leaf's own max|plain|, for every leaf whose max|plain| is at least
+# GRAD_LEAF_FLOOR x the largest (measured worst 3.7e-6 on an H100)
+GRAD_LEAF_TOL = 1e-4
+GRAD_LEAF_FLOOR = 1e-2
+SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
+PATHS = ("dense", "pruned", "train")
+MAIN_PATH = "train"
+TRAIN_BATCH = 32
+GRAD_BATCH = 4
 TPU_KERNELS = {
     "block_masked_matmul":
         "src/repro/kernels/block_masked_matmul/block_masked_matmul.py:43",
@@ -138,7 +176,7 @@ def to_device(tree, device):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernels against their plain versions
+# phase 5: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def check_matmul(cases, gen, dev, log):
@@ -294,10 +332,235 @@ def path_totals(rows, tally):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+def make_trainer(cfg, dev):
+    """The port's FedPhD on 320 synthetic CIFAR-10-like images: 4
+    clients holding 2 classes each, batch 32, 2 edges, 3 rounds with
+    R_s = 2 (round 1 sparse, the prune at round 2's cloud aggregation)."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.hfl import FedPhD
+    from repro_torch.data import (CIFAR10_LIKE, ClientData, make_dataset,
+                                  shards_per_client)
+    from repro_torch.fl.client import Client
+
+    ds = dataclasses.replace(CIFAR10_LIKE, samples_per_class=32)
+    images, labels = make_dataset(ds, seed=0)
+    parts = shards_per_client(labels, 4, 2, seed=0)
+    # wired as the reference's experiment/data.py:make_clients wires them
+    clients = [Client(i, ClientData(images[p], labels[p],
+                                    batch_size=TRAIN_BATCH, seed=i),
+                      ds.num_classes) for i, p in enumerate(parts)]
+    fl = FLConfig(num_clients=4, num_edges=2, participation=1.0,
+                  local_epochs=1, edge_agg_every=1, cloud_agg_every=1,
+                  rounds=3, sparse_rounds=2, prune_ratio=0.44)
+    return FedPhD(cfg.replace(precision="fp32"), fl, clients, device=dev)
+
+
+def train_phase(cfg, dev, counters, zero_counters):
+    """Full-width FedPhD through sparse -> prune -> plain; returns the
+    run's tallies: kernel -> {shape key: launches}, plus the matmul's
+    dx launches under "block_masked_matmul_dx"."""
+    import numpy as np
+    import torch
+
+    trainer = make_trainer(cfg, dev)
+    bmm = counters["block_masked_matmul"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    ends = [0]                           # step count at each round's end
+    for r in (1, 2, 3):                  # sparse; plain, pruned; compacted
+        hist, _ = trainer.run(r)
+        ends.append(len(trainer.step_seconds))
+        if r == 1:
+            omega_l2 = counters["group_l2_norms"].launches
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
+    tally["block_masked_matmul_dx"] = dict(bmm.dx_shapes)
+    steps = np.asarray(trainer.step_seconds)
+    # the first step pays one-off start-up costs; the rates are taken
+    # over the steps after it
+    steady = steps[1:]
+    dx = sum(tally["block_masked_matmul_dx"].values())
+    hds = sorted({key[3] for key in tally["flash_attention"]})
+    for rec in hist:
+        emit("train", round=rec.round, loss=rec.loss, comm_gb=rec.comm_gb,
+             comm_up_gb=rec.comm_up_gb, comm_down_gb=rec.comm_down_gb,
+             params_m=rec.params_m, pruned=rec.pruned,
+             selected=rec.selected)
+    emit("train", run="summary", model=cfg.name, precision="fp32",
+         cut="data 320 images (32 per class), 4 clients, 3 rounds; "
+             "full width and depth",
+         steps=len(steps), batch=TRAIN_BATCH, wall_s=wall,
+         first_step_ms=float(steps[0] * 1e3), steady_steps=len(steady),
+         p50_step_ms=float(np.percentile(steady, 50) * 1e3),
+         p99_step_ms=float(np.percentile(steady, 99) * 1e3),
+         images_per_s=float(TRAIN_BATCH * len(steady) / steady.sum()),
+         p50_step_ms_by_round=[
+             float(np.percentile(steps[max(a, 1):b], 50) * 1e3)
+             for a, b in zip(ends, ends[1:])],
+         step_ms=[float(x * 1e3) for x in steps],
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+         launches=launches, matmul_fwd=launches["block_masked_matmul"] - dx,
+         matmul_dx=dx, attention_hd=hds, group_l2_in_round1=omega_l2,
+         prune_report_kept=sum(k for k, _ in
+                               trainer.prune_report.values()))
+    require(len(hist) == 3 and len(steps) == 24,
+            f"train: {len(hist)} rounds, {len(steps)} steps (want 3, 24)")
+    require(all(np.isfinite(r.loss) for r in hist),
+            f"train: a loss is not finite: {[r.loss for r in hist]}")
+    require(hist[1].params_m < hist[0].params_m and hist[1].pruned
+            and hist[2].params_m == hist[1].params_m,
+            f"train: params_m did not fall at the prune round: "
+            f"{[(r.params_m, r.pruned) for r in hist]}")
+    require(launches["block_masked_matmul"] - dx > 0 and dx > 0,
+            f"train: matmul forward/dx launches {launches} / {dx}")
+    require(256 in hds and 144 in hds,
+            f"train: attention head dims {hds}, want 256 and 144")
+    require(omega_l2 > 0, "train: no group-L2 launch inside Omega in "
+                          "round 1")
+    require(all(sum(t.values()) == launches[k] for k, t in tally.items()
+                if k in launches),
+            f"train: per-shape tallies do not add up to {launches}")
+    return tally
+
+
+# kernel-name fragments -> category, for the profile's device-time split
+PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",)),
+                      ("flash_attention", ("flash_kernel",)),
+                      ("group_l2_norms", ("col_partials", "group_sums")),
+                      ("library_gemm", ("gemm", "gemv")))
+
+
+def profile_phase(cfg, dev, out_dir):
+    """``--profile``: a second, identical training run under
+    ``torch.profiler``.  Emits the device time by category and by kernel
+    name, and the device's busy share of the run (the union of kernel
+    intervals over the run's wall time).  The profiler's own host cost
+    inflates the wall time, so the idle share is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = make_trainer(cfg, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:                   # union of the kernel intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_cat, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        cat = next((c for c, frags in PROFILE_CATEGORIES
+                    if any(f in e.name.lower() for f in frags)), "other")
+        n, t = by_cat.get(cat, (0, 0.0))
+        by_cat[cat] = (n + 1, t + us)
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60))
+    emit("profile", run="train, profiled", wall_s=wall,
+         steps=len(trainer.step_seconds), device_kernels=len(kernels),
+         device_busy_s=busy_us / 1e6,
+         device_idle_share=1.0 - busy_us / 1e6 / wall,
+         device_ms_by_category={c: {"launches": n, "ms": t / 1e3}
+                                for c, (n, t) in by_cat.items()},
+         top_kernels=[{"name": k[:80], "launches": n, "ms": t / 1e3}
+                      for k, (n, t) in top])
+    require(kernels, "profile: the profiler recorded no device kernel")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one loss and gradient, kernels against plain versions
+# ---------------------------------------------------------------------------
+
+def grad_phase(cfg, rparams, gen, dev, counters):
+    import torch
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.pruning import (compact, depth_lambdas, l2_scores,
+                                          make_masks, omega, unet_groups)
+    from repro_torch.diffusion import ddpm_loss, linear_schedule
+    from repro_torch.models.unet import apply_unet
+    from repro_torch.tree import tree_leaves
+
+    cpu = torch.device("cpu")
+    img = (GRAD_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    x0 = torch.rand(img, generator=gen, device=dev) * 2 - 1
+    t = torch.randint(0, cfg.diffusion_steps, (GRAD_BATCH,), generator=gen,
+                      device=dev)
+    eps = torch.randn(img, generator=gen, device=dev)
+    groups = unet_groups(cfg, rparams)
+    masks = make_masks(l2_scores(rparams, groups), groups, 0.44)
+    small, _, _ = compact(rparams, cfg, groups, masks)
+
+    def loss_and_grads(params, device, omega_groups):
+        params = to_device(params, device)
+        leaves = tree_leaves(params)
+        for v in leaves:
+            v.requires_grad_()
+        sched = linear_schedule(cfg.diffusion_steps, device=device)
+        loss = ddpm_loss(lambda x, tt: apply_unet(params, cfg, x, tt), sched,
+                         x0.to(device), t=t.to(device), eps=eps.to(device))
+        if omega_groups is not None:
+            lam = depth_lambdas(omega_groups, FLConfig().lambda0)
+            loss = loss + omega(params, omega_groups, lam)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), [g.detach().to(cpu) for g in grads]
+
+    for label, params, og in (("dense + omega", rparams, groups),
+                              ("compacted 0.44", small, None)):
+        before = {k: fn.launches for k, fn in counters.items()}
+        loss, grads = loss_and_grads(params, dev, og)
+        torch.cuda.synchronize()
+        ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+        want_loss, want = loss_and_grads(params, cpu, og)
+        after = {k: fn.launches for k, fn in counters.items()}
+        scale = max(float(g.abs().max()) for g in want)
+        errs = [float((a - b).abs().max()) for a, b in zip(grads, want)]
+        rel = [e / float(b.abs().max()) for e, b in zip(errs, want)
+               if float(b.abs().max()) >= GRAD_LEAF_FLOOR * scale]
+        emit("grad", model=label, batch=GRAD_BATCH, loss=loss,
+             loss_plain=want_loss, loss_err=abs(loss - want_loss),
+             leaves=len(want), max_abs_grad_plain=scale,
+             max_abs_grad_err=max(errs), tol=GRAD_TOL * scale,
+             leaves_held_alone=len(rel), worst_leaf_rel_err=max(rel),
+             leaf_tol_rel=GRAD_LEAF_TOL, kernel_launches=ran)
+        need = ["block_masked_matmul", "flash_attention"] \
+            + (["group_l2_norms"] if og is not None else [])
+        require(all(ran[k] > 0 for k in need),
+                f"grad {label}: the card's pass skipped a kernel: {ran}")
+        require(after == {k: before[k] + ran[k] for k in before},
+                f"grad {label}: the plain pass launched a kernel")
+        require(abs(loss - want_loss) <= FORWARD_TOL * abs(want_loss),
+                f"grad {label}: loss {loss} vs plain {want_loss}")
+        require(max(errs) <= GRAD_TOL * scale and scale > 0,
+                f"grad {label}: gradient err {max(errs)} > "
+                f"{GRAD_TOL} x {scale}")
+        require(max(rel) <= GRAD_LEAF_TOL,
+                f"grad {label}: a leaf's gradient is {max(rel)} of its own "
+                f"max|plain| (limit {GRAD_LEAF_TOL})")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
-def run(out_dir: str) -> dict:
+def run(out_dir: str, profile: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -347,19 +610,23 @@ def run(out_dir: str) -> dict:
                 "flash_attention": fa.flash_attention_bhsd,
                 "group_l2_norms": gl2.group_l2_norms}
 
-    # -- 3. the slice: the serving CLI, dense and at ratio 0.44 --------------
+    def zero_counters():
+        for fn in counters.values():
+            fn.launches = 0
+            fn.shapes.clear()
+        bmm.block_masked_matmul.dx_shapes.clear()
+
+    # -- 3. serving: the CLI, dense and at ratio 0.44 ------------------------
     tallies = {}                  # path -> kernel -> {shape key: launches}
     img_shape = (cfg.image_size, cfg.image_size, cfg.in_channels)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
         checkpoint.save(ckpt, {"params": rparams},
                         {"cfg": config_to_dict(cfg)})
-        for name, extra in PATHS:
+        for name, extra in SERVE_PATHS:
             img_dir = os.path.join(tmp, name)
             torch.cuda.reset_peak_memory_stats(dev)
-            for fn in counters.values():
-                fn.launches = 0
-                fn.shapes.clear()
+            zero_counters()
             m = serve_cli.main(["--ckpt", ckpt, "--requests", "16",
                                 "--slots", str(slots), "--steps", "10",
                                 "--out", img_dir, *extra])
@@ -385,14 +652,19 @@ def run(out_dir: str) -> dict:
             require(launches["block_masked_matmul"] > 0
                     and launches["flash_attention"] > 0,
                     f"{name}: a kernel was not launched: {launches}")
-    require(all(sum(t.values()) > 0 for t in tallies[MAIN_PATH].values()),
+            require(not bmm.block_masked_matmul.dx_shapes,
+                    f"{name}: serving launched a backward dx")
+
+    # -- 4. the main path: training ------------------------------------------
+    tallies["train"] = train_phase(cfg, dev, counters, zero_counters)
+    require(all(sum(tallies[MAIN_PATH][k].values()) > 0 for k in counters),
             f"the {MAIN_PATH} run left a kernel unlaunched")
 
-    # -- 4. kernels vs plain, at the shapes the serving runs launched --------
-    def launched(kernel):
+    # -- 5. kernels vs plain, at the shapes the runs launched ----------------
+    def launched(kernel, paths=PATHS):
         keys = set()
-        for t in tallies.values():
-            keys |= set(t[kernel])
+        for p in paths:
+            keys |= set(tallies[p][kernel])
         return sorted(keys)
 
     os.makedirs(out_dir, exist_ok=True)
@@ -402,39 +674,51 @@ def run(out_dir: str) -> dict:
     def log(row):                 # one line per case, to the log only
         if row.get("key") is not None:
             row["launches"] = {p: tallies[p][row["kernel"]].get(row["key"], 0)
-                               for p, _ in PATHS}
+                               for p in PATHS}
+            if row["kernel"] == "block_masked_matmul":
+                row["launches"]["train_dx"] = \
+                    tallies["train"]["block_masked_matmul_dx"].get(
+                        row["key"], 0)
         rows.append(row)
         case_log.write(json.dumps(row) + "\n")
 
+    def other(dt):
+        return "bfloat16" if dt == "float32" else "float32"
+
     try:
         mm_keys = launched("block_masked_matmul")
+        serve_mm = set(launched("block_masked_matmul", ("dense", "pruned")))
+        largest = sorted(set(tallies["train"]["block_masked_matmul"])
+                         - serve_mm, key=lambda k: -k[0] * k[1] * k[2])[:4]
         cases = []
-        for M, K, N, masked, dt in mm_keys:
-            # each launched shape in its served dtype, and in the other
-            other = "bfloat16" if dt == "float32" else "float32"
+        for key in mm_keys:
+            M, K, N, masked, dt = key
             ratio = 0.44 if masked else None
-            cases += [((M, K, N), ratio, dt, (M, K, N, masked, dt)),
-                      ((M, K, N), ratio, other, None)]
-        for s in [(8, 27, 3), (8192, 1152, 128), (2048, 2304, 256),
-                  (512, 4608, 256)]:
+            cases.append(((M, K, N), ratio, dt, key))
+            # serving shapes in the other dtype too; training shapes at
+            # the largest few
+            if key in serve_mm or key in largest:
+                cases.append(((M, K, N), ratio, other(dt), None))
+        for shape in [(8, 27, 3), (8192, 1152, 128), (2048, 2304, 256),
+                      (512, 4608, 256)]:
             for dt in ("float32", "bfloat16"):
                 for ratio in (0.0, 0.44, 0.9):
-                    cases.append((s, ratio, dt, None))
+                    cases.append((shape, ratio, dt, None))
         mm_err = check_matmul(cases, gen, dev, log)
         emit("kernels", kernel="block_masked_matmul",
-             launched_shapes=len(mm_keys), cases=len(cases),
-             max_abs_err=mm_err, tol_rel=TOL)
+             launched_shapes=len(mm_keys),
+             train_dx_shapes=len(tallies["train"]["block_masked_matmul_dx"]),
+             cases=len(cases), max_abs_err=mm_err, tol_rel=TOL)
 
         att_keys = launched("flash_attention")
         att_cases = []
-        for BH, Sq, Skv, hd, causal, window, dt in att_keys:
-            other = "bfloat16" if dt == "float32" else "float32"
-            att_cases += [((BH, Sq, Skv, hd), causal, window, dt,
-                           (BH, Sq, Skv, hd, causal, window, dt)),
-                          ((BH, Sq, Skv, hd), causal, window, other, None)]
+        for key in att_keys:
+            BH, Sq, Skv, hd, causal, window, dt = key
+            att_cases += [((BH, Sq, Skv, hd), causal, window, dt, key),
+                          ((BH, Sq, Skv, hd), causal, window, other(dt),
+                           None)]
         for dt in ("float32", "bfloat16"):
-            att_cases += [((slots, 256, 256, 144), False, 0, dt, None),
-                          ((slots, 256, 256, 256), True, 0, dt, None),
+            att_cases += [((slots, 256, 256, 256), True, 0, dt, None),
                           ((slots, 256, 256, 256), False, 64, dt, None),
                           ((slots, 200, 200, 256), True, 48, dt, None)]
         att_err = check_attention(att_cases, gen, dev, log)
@@ -449,7 +733,7 @@ def run(out_dir: str) -> dict:
     finally:
         case_log.close()
 
-    # -- 5. full-width forward: kernels vs plain versions --------------------
+    # -- 6. full-width forward: kernels vs plain versions --------------------
     # The plain forward runs on CPU copies: device dispatch picks the plain
     # versions, and no kernel can launch there.
     cpu = torch.device("cpu")
@@ -478,13 +762,26 @@ def run(out_dir: str) -> dict:
         require(bool(torch.isfinite(got).all()) and scale > 1e-3
                 and err <= FORWARD_TOL * scale,
                 f"forward {label}: err {err} vs plain max {scale}")
+    del cparams
+
+    # -- 7. one loss and gradient: kernels vs plain versions -----------------
+    grad_phase(cfg, rparams, gen, dev, counters)
+    if profile:
+        profile_phase(cfg, dev, out_dir)
 
     kernels = []
     errs = {"block_masked_matmul": mm_err["float32"],
             "flash_attention": att_err["float32"],
             "group_l2_norms": l2_err}
     for name, err in errs.items():
-        paths = {p: path_totals(rows, tallies[p][name]) for p, _ in PATHS}
+        paths = {p: path_totals(rows, tallies[p][name]) for p in PATHS}
+        if name == "block_masked_matmul":
+            dx = tallies["train"]["block_masked_matmul_dx"]
+            fwd = {k: n - dx.get(k, 0)
+                   for k, n in tallies["train"][name].items()}
+            paths["train"]["fwd"] = path_totals(
+                rows, {k: n for k, n in fwd.items() if n})
+            paths["train"]["dx"] = path_totals(rows, dx)
         main = paths[MAIN_PATH]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name],
@@ -505,9 +802,13 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(HERE, "build",
                                                   "chip_smoke"),
                     help="directory for the per-case kernel log")
+    ap.add_argument("--profile", action="store_true",
+                    help="also run the training path once more under "
+                         "torch.profiler (device time by kernel, idle "
+                         "share; the table goes to DIR/train_profile.txt)")
     args = ap.parse_args()
     try:
-        device = run(args.out)
+        device = run(args.out, profile=args.profile)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1

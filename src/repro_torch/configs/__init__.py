@@ -1,9 +1,10 @@
-"""U-Net config registry: the port serves the paper's DDPM U-Nets."""
+"""U-Net config registry (the port serves and trains the paper's DDPM
+U-Nets) and the federated-learning config."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.configs.ddpm_unet import CELEBA_UNET, CIFAR10_UNET, SMOKE_UNET
 
 UNETS: Dict[str, ModelConfig] = {
@@ -21,4 +22,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["CELEBA_UNET", "CIFAR10_UNET", "SMOKE_UNET", "UNETS",
-           "ModelConfig", "get_config"]
+           "FLConfig", "ModelConfig", "get_config"]

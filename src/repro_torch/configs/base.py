@@ -1,9 +1,11 @@
-"""Model configuration, the port's own copy of ``repro.configs.base``.
+"""Model and federated-learning configuration, the port's own copy of
+``repro.configs.base``.
 
-The dataclasses keep every field of the reference, so a ``cfg`` dict
-written into a checkpoint manifest by either package round-trips through
-:func:`config_from_dict` unchanged.  Only the U-Net fields are read by
-the port; the transformer fields are carried for that compatibility.
+:class:`ModelConfig` keeps every field of the reference, so a ``cfg``
+dict written into a checkpoint manifest by either package round-trips
+through :func:`config_from_dict` unchanged.  Only the U-Net fields are
+read by the port; the transformer fields are carried for that
+compatibility.
 """
 from __future__ import annotations
 
@@ -124,3 +126,26 @@ def config_from_dict(d: dict) -> ModelConfig:
         if d.get(k) is not None:
             d[k] = tuple(d[k])
     return ModelConfig(**d)
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    """Federated-learning / FedPhD hyper-parameters (paper §V-A).  The
+    reference's baseline knobs (``fedprox_mu``, ``moon_mu``, ``moon_tau``)
+    and its ``seed`` come with the baselines; the trainer's seed is
+    ``FedPhD(rng_seed=...)``."""
+    num_clients: int = 20                # N
+    num_edges: int = 2                   # N_e
+    participation: float = 1.0           # kappa
+    local_epochs: int = 1                # E
+    edge_agg_every: int = 1              # r_e
+    cloud_agg_every: int = 5             # r_g
+    rounds: int = 100                    # R
+    sparse_rounds: int = 20              # R_s
+    # SH-score weighting (eqs 22/24/25)
+    sh_a: float = 15000.0
+    sh_b: float = 0.0
+    # pruning
+    prune_ratio: float = 0.44            # s_p
+    prune_mode: str = "group_norm"       # "group_norm" | "oneshot_random" | "oneshot_l2"
+    lambda0: float = 1e-4                # group-lasso base scale (eq 17)

@@ -1,1 +1,2 @@
-"""FedPhD core algorithms ported so far: structured-pruning masks."""
+"""FedPhD core algorithms: the trainer, aggregation, SH scores, edge
+selection and structured pruning."""

@@ -1,11 +1,17 @@
-"""Structured pruning of the U-Net: groups, L2 criteria, rank masks."""
+"""Structured pruning of the U-Net: groups, L2 criteria, rank masks,
+the Omega regularizer and compaction."""
+from repro_torch.core.pruning.compact import (compact, compact_config,
+                                              compact_params)
 from repro_torch.core.pruning.criteria import (group_sq_norms, l2_scores,
                                                member_unit_sq, random_scores)
 from repro_torch.core.pruning.groups import (GroupMember, PruneGroup,
-                                             get_path, unet_groups)
-from repro_torch.core.pruning.masks import (alignment_for, kept_count,
-                                            make_masks)
+                                             get_path, set_path, unet_groups)
+from repro_torch.core.pruning.masks import (alignment_for, keep_indices,
+                                            kept_count, make_masks)
+from repro_torch.core.pruning.regularizer import depth_lambdas, omega
 
-__all__ = ["GroupMember", "PruneGroup", "alignment_for", "get_path",
-           "group_sq_norms", "kept_count", "l2_scores", "make_masks",
-           "member_unit_sq", "random_scores", "unet_groups"]
+__all__ = ["GroupMember", "PruneGroup", "alignment_for", "compact",
+           "compact_config", "compact_params", "depth_lambdas", "get_path",
+           "group_sq_norms", "keep_indices", "kept_count", "l2_scores",
+           "make_masks", "member_unit_sq", "omega", "random_scores",
+           "set_path", "unet_groups"]

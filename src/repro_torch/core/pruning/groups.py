@@ -48,6 +48,21 @@ def get_path(tree, path: Path):
     return tree
 
 
+def set_path(tree, path: Path, value):
+    """Functional set: a new tree, dicts and lists copied along ``path``."""
+    if not path:
+        return value
+    head, rest = path[0], path[1:]
+    if isinstance(tree, dict):
+        new = dict(tree)
+    elif isinstance(tree, list):
+        new = list(tree)
+    else:
+        raise TypeError(f"cannot descend into {type(tree)}")
+    new[head] = set_path(tree[head], rest, value)
+    return new
+
+
 # ---------------------------------------------------------------------------
 # U-Net groups (paper's model): ResBlock internal channels + attention heads
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Pruning masks from scores (``repro/core/pruning/masks.py``).
+"""Pruning masks from scores, and the kept indices compaction takes
+(``repro/core/pruning/masks.py``).
 
 Kept channel counts are rounded to multiples of 8 (128 once a group is
 at least 1024 wide); head/expert units are not rounded.
@@ -41,3 +42,9 @@ def make_masks(scores: Dict[str, torch.Tensor], groups: List[PruneGroup],
         rank = torch.argsort(idx, dim=-1, stable=True)
         masks[g.name] = (rank < kept_count(g, ratio)).float()
     return masks
+
+
+def keep_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Sorted indices of the kept units of a (size,) mask."""
+    idx = torch.argsort(-mask, dim=-1, stable=True)[..., :k]
+    return torch.sort(idx, dim=-1).values

@@ -12,6 +12,14 @@ tensor launches the kernel (and counts the launch in
 ``block_masked_matmul.launches``, and by shape in
 ``block_masked_matmul.shapes``), a CPU tensor runs
 :func:`block_masked_matmul_plain`.
+
+:class:`MaskedMatmul` makes it differentiable, as the reference's
+``custom_vjp`` does (``repro/models/ops.py:_masked_matmul_pallas_bwd``):
+dx is the same kernel on ``g`` and ``w.T`` with the masks swapped, so
+pruned tiles are skipped in the backward too; dw is the masked fp32
+``x.T @ g``, a plain product outside any kernel in the reference as well.
+The launches that compute a dx are tallied apart, in
+``block_masked_matmul.dx_shapes``.
 """
 from __future__ import annotations
 
@@ -53,13 +61,14 @@ def _check_mask(m, n, device, name):
 
 def block_masked_matmul(x: torch.Tensor, w: torch.Tensor,
                         col_mask: Optional[torch.Tensor] = None,
-                        row_mask: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        row_mask: Optional[torch.Tensor] = None, *,
+                        role: str = "fwd") -> torch.Tensor:
     """x (M, K) @ masked w (K, N) -> (M, N) in x's dtype.
 
     Masks are float32 vectors (``None`` = all ones).  On a CUDA tensor
     this launches the hand-written kernel or raises; on a CPU tensor it
-    runs the plain version.
+    runs the plain version.  ``role="dx"`` marks a backward launch, which
+    is tallied in ``dx_shapes`` as well.
     """
     if x.device.type == "cpu":
         return block_masked_matmul_plain(x, w, col_mask, row_mask)
@@ -90,11 +99,43 @@ def block_masked_matmul(x: torch.Tensor, w: torch.Tensor,
                          int(x.dtype == torch.bfloat16),
                          build.stream_handle(x.device))
     build.check(err, "block_masked_matmul")
+    key = (M, K, N, cm is not None or rm is not None,
+           str(x.dtype).removeprefix("torch."))
     block_masked_matmul.launches += 1
-    block_masked_matmul.shapes[(M, K, N, cm is not None or rm is not None,
-                                str(x.dtype).removeprefix("torch."))] += 1
+    block_masked_matmul.shapes[key] += 1
+    if role == "dx":
+        block_masked_matmul.dx_shapes[key] += 1
     return y
 
 
 block_masked_matmul.launches = 0
 block_masked_matmul.shapes = Counter()   # (M, K, N, masked, dtype) -> launches
+block_masked_matmul.dx_shapes = Counter()   # the same, backward dx only
+
+
+class MaskedMatmul(torch.autograd.Function):
+    """Differentiable :func:`block_masked_matmul` (module docstring).
+    Masks get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, col_mask, row_mask):
+        ctx.save_for_backward(x, w, col_mask, row_mask)
+        return block_masked_matmul(x, w, col_mask, row_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, col_mask, row_mask = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # a contiguous copy of w.T; the kernel reads B row-major
+            dx = block_masked_matmul(g.to(w.dtype).contiguous(),
+                                     w.t().contiguous(), row_mask, col_mask,
+                                     role="dx").to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.t().float(), g.float())
+            if row_mask is not None:
+                dw = dw * row_mask[:, None]
+            if col_mask is not None:
+                dw = dw * col_mask[None, :]
+            dw = dw.to(w.dtype)
+        return dx, dw, None, None

@@ -12,6 +12,12 @@ tensor launches the kernel (counted in
 ``flash_attention_bhsd.launches``, and by shape in
 ``flash_attention_bhsd.shapes``), a CPU tensor runs
 :func:`flash_attention_plain`.
+
+:class:`FlashAttention` makes it differentiable with the reference's own
+backward (``repro/models/ops.py:_attention_pallas_bwd``): a dense
+recompute of the softmax from the saved q, k and v, with the same
+masking and scale (:func:`attention_backward`).  The reference has no
+backward kernel either.
 """
 from __future__ import annotations
 
@@ -26,11 +32,8 @@ HD_MAX = 256
 NEG_INF = -1e30
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0
-                          ) -> torch.Tensor:
-    """The plain PyTorch version (the reference's ``ref.py``): dense
-    softmax in fp32, masked scores at -1e30, output in q's dtype."""
+def _scores(q, k, causal: bool, window: int) -> torch.Tensor:
+    """fp32 scaled scores q k^T, masked entries at -1e30."""
     hd = q.shape[-1]
     Sq, Skv = q.shape[1], k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (hd ** -0.5)
@@ -43,8 +46,32 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window > 0:
             ok &= (qpos - kpos) < window
         s = torch.where(ok[None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0
+                          ) -> torch.Tensor:
+    """The plain PyTorch version (the reference's ``ref.py``): dense
+    softmax in fp32, masked scores at -1e30, output in q's dtype."""
+    p = torch.softmax(_scores(q, k, causal, window), dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def attention_backward(q, k, v, g, *, causal: bool, window: int):
+    """(dq, dk, dv) of softmax attention, recomputed densely in fp32 from
+    q, k and v: P = softmax(S), dV = P^T g, dP = g V^T,
+    dS = P (dP - rowsum(P dP)), dQ = dS K / sqrt(hd), dK = dS^T Q / sqrt(hd).
+    Masked scores have P = 0 and so no gradient."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.softmax(_scores(q, k, causal, window), dim=-1)
+    gf = g.float()
+    dv = torch.einsum("bqk,bqd->bkd", p, gf)
+    dp = torch.einsum("bqd,bkd->bqk", gf, v.float())
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,3 +118,21 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bhsd.launches = 0
 # (BH, Sq, Skv, hd, causal, window, dtype) -> launches
 flash_attention_bhsd.shapes = Counter()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable :func:`flash_attention_bhsd`: the kernel forward,
+    the dense recompute backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention_bhsd(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, g, causal=ctx.causal,
+                                        window=ctx.window)
+        return dq, dk, dv, None, None

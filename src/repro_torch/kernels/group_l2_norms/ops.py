@@ -11,6 +11,11 @@ atomics, so repeated runs give identical scores.
 launches the kernel (counted in ``group_l2_norms.launches``, and by
 shape in ``group_l2_norms.shapes``), a CPU tensor runs
 :func:`group_l2_norms_plain`.
+
+:class:`GroupSqNorms` makes it differentiable for the Omega
+regularizer, with the reference's analytic backward
+``2 * w * repeat(g, chunk)`` (``repro/models/ops.py:_group_sq_pallas_bwd``)
+in plain tensor ops.
 """
 from __future__ import annotations
 
@@ -60,3 +65,19 @@ def group_l2_norms(w: torch.Tensor, num_groups: int) -> torch.Tensor:
 
 group_l2_norms.launches = 0
 group_l2_norms.shapes = Counter()        # (K, N, G) -> launches
+
+
+class GroupSqNorms(torch.autograd.Function):
+    """Differentiable :func:`group_l2_norms` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, w, num_groups: int):
+        ctx.save_for_backward(w)
+        ctx.num_groups = num_groups
+        return group_l2_norms(w, num_groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        chunk = w.shape[1] // ctx.num_groups
+        return 2.0 * w * g.repeat_interleave(chunk)[None, :], None

@@ -4,7 +4,10 @@ kernels.
 Every GEMM (im2col convs, 1x1 convs, denses) goes through
 :func:`masked_matmul` and so through the block-masked matmul kernel;
 attention goes through the flash-attention kernel; the pruning
-reductions through the group sum-of-squares kernel.  Which version runs
+reductions through the group sum-of-squares kernel.  Each goes through
+its wrapper's ``torch.autograd.Function``, so the training loss
+differentiates through the same kernels (the matmul's dx launches the
+matmul kernel again).  Which version runs
 is decided by the tensors' device alone (see :mod:`repro_torch.kernels`):
 there is no backend option.
 
@@ -32,6 +35,7 @@ from repro_torch.experiment.resolve import resolve_precision
 from repro_torch.kernels.block_masked_matmul import ops as bmm
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.kernels.group_l2_norms import ops as gl2
+from repro_torch.tree import tree_map
 
 Mask = Union[None, np.ndarray, torch.Tensor]
 
@@ -47,13 +51,8 @@ def compute_dtype(precision: str) -> torch.dtype:
 def cast_floats(tree, dtype: torch.dtype):
     """Cast every floating tensor of a nested dict/list to ``dtype``;
     other leaves pass through."""
-    if isinstance(tree, dict):
-        return {k: cast_floats(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(cast_floats(v, dtype) for v in tree)
-    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
-        return tree.to(dtype)
-    return tree
+    return tree_map(lambda t: t.to(dtype) if isinstance(t, torch.Tensor)
+                    and t.is_floating_point() else t, tree)
 
 
 def _gemm_cast(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -107,7 +106,8 @@ def _masked_matmul_static(x2: torch.Tensor, w: torch.Tensor,
     if cidx.size != N:
         wr = wr.index_select(1, torch.from_numpy(cidx).to(dev))
     # the kept entries of a 0/1 mask are all ones: no mask on the kernel
-    out_r = bmm.block_masked_matmul(xr.contiguous(), wr.contiguous())
+    out_r = bmm.MaskedMatmul.apply(xr.contiguous(), wr.contiguous(), None,
+                                   None)
     if cidx.size == N:
         return out_r
     out = torch.zeros((x2.shape[0], N), dtype=out_r.dtype, device=dev)
@@ -126,9 +126,9 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, col_mask: Mask = None,
     if _static_masks(col_mask, row_mask):
         out = _masked_matmul_static(x2, w, col_mask, row_mask)
     else:
-        out = bmm.block_masked_matmul(x2, w.contiguous(),
-                                      _device_mask(col_mask, x.device),
-                                      _device_mask(row_mask, x.device))
+        out = bmm.MaskedMatmul.apply(x2, w.contiguous(),
+                                     _device_mask(col_mask, x.device),
+                                     _device_mask(row_mask, x.device))
     return out.reshape(lead + (w.shape[1],))
 
 
@@ -203,8 +203,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = q.permute(0, 2, 1, 3).reshape(B * H, Sq, hd).contiguous()
     kf = k.permute(0, 2, 1, 3).reshape(B * H, -1, hd).contiguous()
     vf = v.permute(0, 2, 1, 3).reshape(B * H, -1, hd).contiguous()
-    out = flash.flash_attention_bhsd(qf, kf, vf, causal=causal,
-                                     window=window)
+    out = flash.FlashAttention.apply(qf, kf, vf, causal, window)
     return out.reshape(B, H, Sq, hd).permute(0, 2, 1, 3)
 
 
@@ -215,4 +214,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def group_sq_norms_2d(w2d: torch.Tensor, num_groups: int) -> torch.Tensor:
     """(K, G*C) -> (G,) fp32 per-group sums of squares over contiguous
     column chunks."""
-    return gl2.group_l2_norms(w2d.float().contiguous(), num_groups)
+    return gl2.GroupSqNorms.apply(w2d.float().contiguous(), num_groups)

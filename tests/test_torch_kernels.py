@@ -30,6 +30,17 @@ TOL = {"float32": dict(atol=1e-4, rtol=0.0), "bfloat16": dict(atol=0.15,
                                                               rtol=1e-2)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once: one intra-op
+    thread per process keeps torch from oversubscribing the cores (the
+    small shapes here gain nothing from more)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, M, K, N, ratio, dtype):
     r = np.random.default_rng(seed)
     x = r.standard_normal((M, K), np.float32)

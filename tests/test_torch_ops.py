@@ -27,6 +27,17 @@ ATOL = 1e-5
 BACKENDS = ("xla", "ref")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once: one intra-op
+    thread per process keeps torch from oversubscribing the cores (the
+    small shapes here gain nothing from more)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

@@ -48,6 +48,17 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once: one intra-op
+    thread per process keeps torch from oversubscribing the cores (the
+    small shapes here gain nothing from more)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randomize(tree, r):
     """Weights at 1/sqrt(fan_in), norm scales near 1, small biases."""
     if isinstance(tree, dict):
@@ -58,11 +69,14 @@ def _randomize(tree, r):
                 continue
             z = r.standard_normal(v.shape).astype(np.float32)
             if k == "w":
-                out[k] = z / np.sqrt(np.prod(v.shape[:-1]))
+                z = z / np.sqrt(np.prod(v.shape[:-1]))
             elif k == "scale":
-                out[k] = 1.0 + 0.1 * z
+                z = 1.0 + 0.1 * z
             else:
-                out[k] = 0.1 * z
+                z = 0.1 * z
+            # float32, as the reference holds them: dividing by numpy's
+            # float64 sqrt would otherwise hand the port float64 weights
+            out[k] = z.astype(np.float32)
         return out
     return [_randomize(v, r) for v in tree]
 
