@@ -9,7 +9,7 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
 ``build/chip_smoke``):
 
 1. device   the card's name and count, and nvidia-smi's name/power limit;
-2. build    nvcc-builds the three kernels from ``src/repro_torch/kernels``;
+2. build    nvcc-builds the four kernels from ``src/repro_torch/kernels``;
 3. serve    ``python -m repro_torch.serve`` on a full-width CIFAR10_UNET
             checkpoint with random weights at 1/sqrt(fan_in) scale (16
             requests, 8 slots, 10 steps), dense and at
@@ -24,43 +24,58 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             The first step's time is given on its own; the step p50/p99
             and images/s are over the 23 steps after it, and a p50 is
             given for each round;
-5. kernels  every kernel against its plain PyTorch version on the card at
-            each shape the serving and training runs launched it with
+5. lm_prefill  the full 38-layer recurrentgemma-9b in bf16 with random
+            weights from the port's init, ``build_prefill_step`` on
+            B = 2, S = 4096 token ids from a numpy seed: one warm-up and
+            3 timed prefills; 26 scan and 12 attention launches each;
+6. lm_serve ``serve_requests`` on the same model: 8 slots, 16 requests of
+            32 tokens, cache_len 4096 (decode is plain tensor ops, as the
+            reference's: no kernel launches);
+7. lm_consistency  recurrentgemma-9b at depth 5 (one cycle plus the
+            two-layer tail), full width, fp32: the last position's
+            prefill logits (scan and windowed attention kernels) against
+            the decode logits after the same 2304 tokens one by one
+            (plain ``rglru_decode`` and ring-buffer ``attend``), within
+            LM_TOL of max|logit|; 2304 is past the 2048 window;
+8. kernels  every kernel against its plain PyTorch version on the card at
+            each shape the serving, training and LM runs launched it with
             (the matmul's forward and backward-dx launches alike), plus
-            masked cases (ratios 0 / 0.44 / 0.9, a fully masked N-block)
-            and attention at hd=144, causal and windowed, in the dtype
-            each ran (fp32, TF32 off) and in bf16 at the serving shapes
-            and the largest training shapes, each with its tolerance and
-            its time beside the plain version, the library call and the
-            bound;
-6. forward  one full-width U-Net forward through the kernels against the
+            masked cases (ratios 0 / 0.44 / 0.9, a fully masked N-block),
+            attention at hd=144, causal and windowed, and the scan on a
+            ragged shape and with a in [0.999, 1), in the dtype each ran
+            (fp32, TF32 off) and in bf16 (or fp32) beside it, each with
+            its tolerance and its time beside the plain version, the
+            library call (none computes the scan) and the bound;
+9. forward  one full-width U-Net forward through the kernels against the
             same forward through the plain versions (on CPU copies of the
             weights and inputs, so device dispatch picks them), dense and
             with 0.44 masks;
-7. grad     one full-width loss and gradient at batch 4 with injected t
+10. grad    one full-width loss and gradient at batch 4 with injected t
             and eps, through the kernels against the plain versions on
             CPU copies: the dense model with Omega, as in a sparse round,
             and the compacted model.  Every leaf is held to GRAD_TOL of
             the largest plain gradient, and every leaf of at least
             GRAD_LEAF_FLOOR of it also to GRAD_LEAF_TOL of its own;
-8. profile  only with ``--profile``: the training run once more under
-            ``torch.profiler``, its device time by kernel and category
-            and the device's idle share; the training trace for work on
-            the step's speed (the profiler's post-processing adds ~4 min).
+11. profile only with ``--profile``: the training run once more, and
+            after lm_serve one more prefill and 8 decode steps, each under
+            ``torch.profiler``: device time by kernel and category and
+            the device's idle share, the traces for work on the step's
+            speed (the training profile's post-processing adds ~4 min).
 
 Every kernel's counters (``.launches``, the per-shape ``.shapes`` and
-the matmul's ``.dx_shapes``) are set to 0 just before each serving run
-and the training run, and read just after it.
+the matmul's ``.dx_shapes``) are set to 0 just before each serving run,
+the training run and each LM run, and read just after it.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
-``{"ok": true, "device": {...}}``.  In the kernels line the main path is
-the training run, the system's own path, which reaches all three
-kernels: ``launches`` is its count, and ``ms``, ``plain_ms``,
+``{"ok": true, "device": {...}}``.  In the kernels line each kernel's
+main path (``MAIN_PATHS``) is the training run, the system's own path,
+for the three U-Net kernels and the LM prefill for the scan:
+``launches`` is its count there, and ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over its launches of each
-shape's time (count x time per launch).  ``paths`` gives the same for
-the dense and pruned serving runs and the training run, the matmul's
-training launches also split into forward and dx.  Any failure exits
-nonzero before the last line.
+shape's time (count x time per launch; ``library_ms`` is null where no
+PyTorch call computes the function).  ``paths`` gives the same for
+every run, the matmul's training launches also split into forward and
+dx.  Any failure exits nonzero before the last line.
 """
 from __future__ import annotations
 
@@ -88,17 +103,30 @@ GRAD_TOL = 1e-4
 # GRAD_LEAF_FLOOR x the largest (measured worst 3.7e-6 on an H100)
 GRAD_LEAF_TOL = 1e-4
 GRAD_LEAF_FLOOR = 1e-2
+# the last-position prefill logits against the decode logits after the
+# same tokens, x max|decode logit|: fp32 with TF32 off on both sides,
+# which differ in summation order only (GEMMs over 2304 rows vs GEMVs,
+# the attention kernel vs the plain ring-buffer attention)
+LM_TOL = 1e-4
 SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
-PATHS = ("dense", "pruned", "train")
-MAIN_PATH = "train"
+LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency")
+PATHS = ("dense", "pruned", "train") + LM_PATHS
+MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
+              "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
 TRAIN_BATCH = 32
 GRAD_BATCH = 4
+LM_ARCH = "recurrentgemma-9b"
+LM_BATCH, LM_SEQ, LM_TIMED = 2, 4096, 3
+LM_SERVE = dict(slots=8, requests=16, max_tokens=32, cache_len=4096)
+LM_DEPTH, LM_CONSISTENCY_SEQ = 5, 2304
+LM_PROFILE_STEPS = 8
 TPU_KERNELS = {
     "block_masked_matmul":
         "src/repro/kernels/block_masked_matmul/block_masked_matmul.py:43",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:74",
     "group_l2_norms": "src/repro/kernels/group_l2_norms/group_l2_norms.py:19",
+    "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:41",
 }
 SOURCES = {
     "block_masked_matmul": "src/repro_torch/kernels/block_masked_matmul/"
@@ -107,6 +135,7 @@ SOURCES = {
                        "flash_attention.cu",
     "group_l2_norms": "src/repro_torch/kernels/group_l2_norms/csrc/"
                       "group_l2_norms.cu",
+    "rglru_scan": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
 }
 TIMES = ("ms", "plain_ms", "library_ms", "bound_ms")
 
@@ -176,7 +205,7 @@ def to_device(tree, device):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernels against their plain versions
+# phase 8: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def check_matmul(cases, gen, dev, log):
@@ -316,19 +345,212 @@ def check_group_l2(shapes, gen, dev, log):
     return worst
 
 
+def check_scan(cases, gen, dev, log):
+    """cases: ((B, S, W), a's range, dtype, tally key or None).  a is
+    drawn uniform in the range, b standard normal."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as scan
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for (B, S, W), (lo, hi), dtype_name, key in cases:
+        dt = getattr(torch, dtype_name)
+        a = (lo + (hi - lo) * torch.rand(B, S, W, generator=gen,
+                                         device=dev)).to(dt)
+        b = torch.randn(B, S, W, generator=gen, device=dev).to(dt)
+        got = scan.rglru_scan(a, b)
+        want = scan.rglru_scan_plain(a, b)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = max(1.0, float(want.float().abs().max()))
+        tol = TOL[dtype_name] * scale
+        # a multiply and an add per element, in fp32 whatever the dtype
+        b_ms, b_by = bound_ms(2.0 * B * S * W,
+                              3 * B * S * W * a.element_size(), "float32")
+        row = {"kernel": "rglru_scan", "key": key, "B": B, "S": S, "W": W,
+               "a_range": [lo, hi], "dtype": dtype_name, "max_abs_err": err,
+               "max_abs_plain": scale, "tol": tol,
+               "bitwise_equal": bool(torch.equal(got, want)),
+               "ms": time_ms(lambda: scan.rglru_scan(a, b)),
+               # a Python loop of S steps: a few launches each
+               "plain_ms": time_ms(lambda: scan.rglru_scan_plain(a, b),
+                                   iters=2),
+               # no single PyTorch call computes a linear recurrence
+               "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by}
+        log(row)
+        require(err <= tol, f"rglru_scan {(B, S, W)} a in [{lo}, {hi}) "
+                            f"{dtype_name}: err {err} > tol {tol}")
+        worst[dtype_name] = max(worst[dtype_name], err)
+    return worst
+
+
 def path_totals(rows, tally):
     """One run's launches and count x time per launch, summed over the
-    shapes ``tally`` (tally key -> launches in that run) records."""
+    shapes ``tally`` (tally key -> launches in that run) records; a time
+    no case has (``library_ms`` of the scan) stays None."""
     by_key = {r["key"]: r for r in rows if r.get("key") is not None}
     out = {"launches": sum(tally.values()), **{k: 0.0 for k in TIMES}}
     by = {"bytes": 0.0, "operations": 0.0}
     for key, n in tally.items():
         r = by_key[key]
         for k in TIMES:
-            out[k] += n * r[k]
+            out[k] = None if out[k] is None or r[k] is None \
+                else out[k] + n * r[k]
         by[r["bound_by"]] += n * r["bound_ms"]
     out["bound_by"] = max(by, key=by.get) if tally else None
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: RecurrentGemma serving
+# ---------------------------------------------------------------------------
+
+def lm_kinds(cfg):
+    """(recurrent layers, attention layers) of a decoder config."""
+    from repro_torch.configs.base import RECURRENT
+    kinds = cfg.layer_kinds()
+    n_rec = sum(k == RECURRENT for k in kinds)
+    return n_rec, len(kinds) - n_rec
+
+
+def lm_prefill_phase(cfg, params, dev, counters, zero_counters):
+    """One warm-up and LM_TIMED timed prefills of B = 2, S = 4096; returns
+    the run's tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import build_prefill_step
+
+    step = build_prefill_step(cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (LM_BATCH, LM_SEQ))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    times = []
+    for _ in range(1 + LM_TIMED):
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
+    n_rec, n_attn = lm_kinds(cfg)
+    runs = 1 + LM_TIMED
+    med = float(np.median(times[1:]))
+    finite = bool(torch.isfinite(logits).all())
+    emit("lm_prefill", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, batch=LM_BATCH, seq=LM_SEQ, cut="none",
+         warmup_ms=times[0] * 1e3, prefill_ms=[t * 1e3 for t in times[1:]],
+         prefill_ms_median=med * 1e3, tokens_per_s=LM_BATCH * LM_SEQ / med,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+         prefills=runs, launches=launches,
+         launches_per_prefill={k: v / runs for k, v in launches.items()},
+         logits_shape=list(logits.shape), finite=finite,
+         max_abs_logit=float(logits.float().abs().max()))
+    require((n_rec, n_attn) == (26, 12),
+            f"lm_prefill: {cfg.name} plans {n_rec} recurrent and {n_attn} "
+            f"attention layers, want 26 and 12")
+    require(launches["rglru_scan"] == n_rec * runs
+            and launches["flash_attention"] == n_attn * runs,
+            f"lm_prefill: launches {launches} over {runs} prefills, want "
+            f"{n_rec} scans and {n_attn} attentions each")
+    require(launches["block_masked_matmul"] == 0
+            and launches["group_l2_norms"] == 0,
+            f"lm_prefill: a U-Net kernel was launched: {launches}")
+    require(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and finite,
+            f"lm_prefill: logits {tuple(logits.shape)}, finite={finite}")
+    return tally
+
+
+def lm_serve_phase(cfg, params, dev, counters, zero_counters):
+    """``serve_requests`` with LM_SERVE; returns the run's tallies (all
+    empty: the decode step launches no kernel of the port)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve_requests
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    res = serve_requests(params, cfg, seed=0, **LM_SERVE)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
+    steps = np.asarray(res["step_seconds"])
+    outs = res["outputs"]
+    toks = [t for rid in sorted(outs) for t in outs[rid]]
+    emit("lm_serve", model=cfg.name, **LM_SERVE, steps=len(steps),
+         generated=res["generated"], seconds=res["seconds"],
+         tok_per_s=res["tok_per_s"],
+         first_step_ms=float(steps[0] * 1e3),
+         p50_step_ms=float(np.percentile(steps, 50) * 1e3),
+         p99_step_ms=float(np.percentile(steps, 99) * 1e3),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+         launches=launches, request0=outs[0][:8])
+    want = LM_SERVE["requests"] * LM_SERVE["max_tokens"]
+    require(sorted(outs) == list(range(LM_SERVE["requests"]))
+            and all(len(v) == LM_SERVE["max_tokens"] for v in outs.values())
+            and len(toks) == want,
+            f"lm_serve: {len(toks)} tokens over {len(outs)} requests, want "
+            f"{want}")
+    require(all(0 <= t < cfg.vocab_size for t in toks),
+            "lm_serve: a token outside [0, vocab)")
+    require(not any(launches.values()),
+            f"lm_serve: the decode loop launched a kernel: {launches}")
+    return tally
+
+
+def lm_consistency_phase(cfg, dev, counters, zero_counters):
+    """Depth-LM_DEPTH fp32 model: the prefill's last logits (kernels)
+    against decode's after the same tokens one by one (plain ops)."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import state_dict
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import model
+
+    gen = torch.Generator(dev)
+    gen.manual_seed(1)
+    params = model.init(cfg, gen, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, LM_CONSISTENCY_SEQ))).to(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    pre = build_prefill_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
+    cache = model.init_cache(params, cfg, 1, LM_CONSISTENCY_SEQ)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(LM_CONSISTENCY_SEQ):
+            dec, cache = model.decode(params, cache, cfg, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    after = {k: fn.launches for k, fn in counters.items()}
+    dec = dec[:, 0]
+    err = float((pre - dec).abs().max())
+    scale = float(dec.abs().max())
+    n_rec, n_attn = lm_kinds(cfg)
+    emit("lm_consistency", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, seq=LM_CONSISTENCY_SEQ,
+         window=cfg.sliding_window, cut=f"depth {LM_DEPTH} of 38",
+         params=sum(v.numel() for v in state_dict(params).values()),
+         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3
+         / LM_CONSISTENCY_SEQ, max_abs_err=err, max_abs_logit=scale,
+         tol=LM_TOL * scale, same_argmax=bool(
+             torch.equal(pre.argmax(-1), dec.argmax(-1))),
+         prefill_launches=launches)
+    require(launches["rglru_scan"] == n_rec
+            and launches["flash_attention"] == n_attn,
+            f"lm_consistency: prefill launches {launches}, want {n_rec} "
+            f"scans and {n_attn} attentions")
+    require(after == launches,
+            f"lm_consistency: decode launched a kernel: {after}")
+    require(bool(torch.isfinite(pre).all()) and scale > 0
+            and err <= LM_TOL * scale,
+            f"lm_consistency: prefill vs decode logits err {err} > "
+            f"{LM_TOL} x {scale}")
+    return tally
 
 
 # ---------------------------------------------------------------------------
@@ -433,25 +655,25 @@ def train_phase(cfg, dev, counters, zero_counters):
 PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",)),
                       ("flash_attention", ("flash_kernel",)),
                       ("group_l2_norms", ("col_partials", "group_sums")),
-                      ("library_gemm", ("gemm", "gemv")))
+                      ("rglru_scan", ("rglru_scan_kernel",)),
+                      ("library_gemm", ("gemm", "gemv", "nvjet")))
 
 
-def profile_phase(cfg, dev, out_dir):
-    """``--profile``: a second, identical training run under
-    ``torch.profiler``.  Emits the device time by category and by kernel
-    name, and the device's busy share of the run (the union of kernel
-    intervals over the run's wall time).  The profiler's own host cost
-    inflates the wall time, so the idle share is an upper bound."""
+def profiled(fn, out_path):
+    """Run ``fn`` once under ``torch.profiler``; returns its device time
+    by category and by kernel name, and the device's busy share of the
+    run (the union of kernel intervals over the run's wall time).  The
+    profiler's own host cost inflates the wall time, so the idle share
+    is an upper bound.  The profiler's table goes to ``out_path``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = make_trainer(cfg, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -471,22 +693,64 @@ def profile_phase(cfg, dev, out_dir):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + us)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
+    with open(out_path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
-    emit("profile", run="train, profiled", wall_s=wall,
-         steps=len(trainer.step_seconds), device_kernels=len(kernels),
-         device_busy_s=busy_us / 1e6,
-         device_idle_share=1.0 - busy_us / 1e6 / wall,
-         device_ms_by_category={c: {"launches": n, "ms": t / 1e3}
-                                for c, (n, t) in by_cat.items()},
-         top_kernels=[{"name": k[:80], "launches": n, "ms": t / 1e3}
-                      for k, (n, t) in top])
     require(kernels, "profile: the profiler recorded no device kernel")
+    return dict(wall_s=wall, device_kernels=len(kernels),
+                device_busy_s=busy_us / 1e6,
+                device_idle_share=1.0 - busy_us / 1e6 / wall,
+                device_ms_by_category={c: {"launches": n, "ms": t / 1e3}
+                                       for c, (n, t) in by_cat.items()},
+                top_kernels=[{"name": k[:80], "launches": n, "ms": t / 1e3}
+                             for k, (n, t) in top])
+
+
+def profile_phase(cfg, dev, out_dir):
+    """``--profile``: a second, identical training run under
+    ``torch.profiler`` (:func:`profiled`)."""
+    trainer = make_trainer(cfg, dev)
+    summary = profiled(trainer.run, os.path.join(out_dir,
+                                                 "train_profile.txt"))
+    emit("profile", run="train, profiled",
+         steps=len(trainer.step_seconds), **summary)
+
+
+def lm_profile_phase(cfg, params, dev, out_dir):
+    """``--profile``: one more prefill as in lm_prefill, and
+    LM_PROFILE_STEPS decode steps at 8 slots against a fresh cache of
+    cache_len 4096, each under ``torch.profiler`` (:func:`profiled`)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import model
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).to(dev)
+    prefill = build_prefill_step(cfg)
+    emit("profile", run="lm_prefill, profiled", batch=LM_BATCH, seq=LM_SEQ,
+         **profiled(lambda: prefill(params, {"tokens": toks}),
+                    os.path.join(out_dir, "lm_prefill_profile.txt")))
+    serve = build_serve_step(cfg)
+    slots = LM_SERVE["slots"]
+    state = {"cache": model.init_cache(params, cfg, slots,
+                                       LM_SERVE["cache_len"]),
+             "toks": toks[:, :1].repeat(slots // LM_BATCH, 1).to(
+                 torch.int32)}
+
+    def steps():
+        for _ in range(LM_PROFILE_STEPS):
+            state["toks"], state["cache"] = serve(params, state["cache"],
+                                                  state["toks"])
+            state["toks"].cpu()          # the serving loop's host sync
+    steps()                              # the first step's one-off costs
+    emit("profile", run="lm_serve decode steps, profiled", slots=slots,
+         steps=LM_PROFILE_STEPS,
+         **profiled(steps, os.path.join(out_dir, "lm_decode_profile.txt")))
 
 
 # ---------------------------------------------------------------------------
-# phase 7: one loss and gradient, kernels against plain versions
+# phase 10: one loss and gradient, kernels against plain versions
 # ---------------------------------------------------------------------------
 
 def grad_phase(cfg, rparams, gen, dev, counters):
@@ -597,6 +861,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
     from repro_torch.kernels.block_masked_matmul import ops as bmm
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.group_l2_norms import ops as gl2
+    from repro_torch.kernels.rglru_scan import ops as scan
     from repro_torch.models.unet import apply_unet, init_unet
     from repro_torch.serve import __main__ as serve_cli
     from repro_torch.serve.artifact import masks_for_ratio
@@ -608,7 +873,8 @@ def run(out_dir: str, profile: bool = False) -> dict:
     rparams = randomize(init_unet(cfg, gen, device=dev), gen)
     counters = {"block_masked_matmul": bmm.block_masked_matmul,
                 "flash_attention": fa.flash_attention_bhsd,
-                "group_l2_norms": gl2.group_l2_norms}
+                "group_l2_norms": gl2.group_l2_norms,
+                "rglru_scan": scan.rglru_scan}
 
     def zero_counters():
         for fn in counters.values():
@@ -655,12 +921,35 @@ def run(out_dir: str, profile: bool = False) -> dict:
             require(not bmm.block_masked_matmul.dx_shapes,
                     f"{name}: serving launched a backward dx")
 
-    # -- 4. the main path: training ------------------------------------------
+    # -- 4. the U-Net kernels' main path: training ---------------------------
     tallies["train"] = train_phase(cfg, dev, counters, zero_counters)
-    require(all(sum(tallies[MAIN_PATH][k].values()) > 0 for k in counters),
-            f"the {MAIN_PATH} run left a kernel unlaunched")
 
-    # -- 5. kernels vs plain, at the shapes the runs launched ----------------
+    # -- 5-7. RecurrentGemma serving: full model, then depth 5 in fp32 -------
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm_model
+    lm_cfg = get_config(LM_ARCH)
+    lm_gen = torch.Generator(dev)
+    lm_gen.manual_seed(0)
+    lm_params = lm_model.init(lm_cfg, lm_gen, device=dev)
+    tallies["lm_prefill"] = lm_prefill_phase(lm_cfg, lm_params, dev,
+                                             counters, zero_counters)
+    tallies["lm_serve"] = lm_serve_phase(lm_cfg, lm_params, dev, counters,
+                                         zero_counters)
+    if profile:
+        os.makedirs(out_dir, exist_ok=True)
+        lm_profile_phase(lm_cfg, lm_params, dev, out_dir)
+    del lm_params
+    torch.cuda.empty_cache()
+    tallies["lm_consistency"] = lm_consistency_phase(
+        lm_cfg.replace(num_layers=LM_DEPTH, dtype="float32",
+                       param_dtype="float32"), dev, counters, zero_counters)
+    torch.cuda.empty_cache()
+    require(all(sum(tallies[MAIN_PATHS[k]][k].values()) > 0
+                for k in counters),
+            f"a kernel was not launched on its main path: "
+            f"{ {k: tallies[MAIN_PATHS[k]][k] for k in counters} }")
+
+    # -- 8. kernels vs plain, at the shapes the runs launched ----------------
     def launched(kernel, paths=PATHS):
         keys = set()
         for p in paths:
@@ -730,10 +1019,24 @@ def run(out_dir: str, profile: bool = False) -> dict:
         l2_err = check_group_l2(l2_keys, gen, dev, log)
         emit("kernels", kernel="group_l2_norms", launched_shapes=len(l2_keys),
              max_abs_err=l2_err, tol_rel=TOL["float32"])
+
+        scan_keys = launched("rglru_scan")
+        scan_cases = []
+        for key in scan_keys:
+            B, S, W, dt = key
+            scan_cases += [((B, S, W), (0.0, 1.0), dt, key),
+                           ((B, S, W), (0.0, 1.0), other(dt), None)]
+        for dt in ("float32", "bfloat16"):
+            scan_cases += [((3, 1000, 300), (0.0, 1.0), dt, None),
+                           ((LM_BATCH, LM_SEQ, 512), (0.999, 1.0), dt,
+                            None)]
+        scan_err = check_scan(scan_cases, gen, dev, log)
+        emit("kernels", kernel="rglru_scan", launched_shapes=len(scan_keys),
+             cases=len(scan_cases), max_abs_err=scan_err, tol_rel=TOL)
     finally:
         case_log.close()
 
-    # -- 6. full-width forward: kernels vs plain versions --------------------
+    # -- 9. full-width forward: kernels vs plain versions --------------------
     # The plain forward runs on CPU copies: device dispatch picks the plain
     # versions, and no kernel can launch there.
     cpu = torch.device("cpu")
@@ -764,7 +1067,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
                 f"forward {label}: err {err} vs plain max {scale}")
     del cparams
 
-    # -- 7. one loss and gradient: kernels vs plain versions -----------------
+    # -- 10. one loss and gradient: kernels vs plain versions ----------------
     grad_phase(cfg, rparams, gen, dev, counters)
     if profile:
         profile_phase(cfg, dev, out_dir)
@@ -772,7 +1075,8 @@ def run(out_dir: str, profile: bool = False) -> dict:
     kernels = []
     errs = {"block_masked_matmul": mm_err["float32"],
             "flash_attention": att_err["float32"],
-            "group_l2_norms": l2_err}
+            "group_l2_norms": l2_err,
+            "rglru_scan": scan_err["float32"]}
     for name, err in errs.items():
         paths = {p: path_totals(rows, tallies[p][name]) for p in PATHS}
         if name == "block_masked_matmul":
@@ -782,14 +1086,14 @@ def run(out_dir: str, profile: bool = False) -> dict:
             paths["train"]["fwd"] = path_totals(
                 rows, {k: n for k, n in fwd.items() if n})
             paths["train"]["dx"] = path_totals(rows, dx)
-        main = paths[MAIN_PATH]
+        main = paths[MAIN_PATHS[name]]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name],
                         "replaces": TPU_KERNELS[name],
                         "launches": main["launches"], "max_abs_err": err,
                         **{k: main[k] for k in TIMES},
                         "bound_by": main["bound_by"],
-                        "main_path": MAIN_PATH, "paths": paths})
+                        "main_path": MAIN_PATHS[name], "paths": paths})
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "JAX or the JAX package was imported")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -803,9 +1107,10 @@ def main() -> int:
                                                   "chip_smoke"),
                     help="directory for the per-case kernel log")
     ap.add_argument("--profile", action="store_true",
-                    help="also run the training path once more under "
-                         "torch.profiler (device time by kernel, idle "
-                         "share; the table goes to DIR/train_profile.txt)")
+                    help="also run the training path, one LM prefill and "
+                         "8 LM decode steps once more under torch.profiler "
+                         "(device time by kernel, idle share; the tables "
+                         "go to DIR/*_profile.txt)")
     args = ap.parse_args()
     try:
         device = run(args.out, profile=args.profile)

@@ -4,8 +4,9 @@
 :class:`ModelConfig` keeps every field of the reference, so a ``cfg``
 dict written into a checkpoint manifest by either package round-trips
 through :func:`config_from_dict` unchanged.  Only the U-Net fields are
-read by the port; the transformer fields are carried for that
-compatibility.
+read by the U-Net slices, the decoder fields by the RecurrentGemma
+serving slice; the rest (MoE, MLA, encoder, image tokens) are carried
+for that compatibility.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-ATTN_GLOBAL = 0
+# layer kinds of the decoder stack, as the reference numbers them
+ATTN_GLOBAL = 0      # full causal attention
+ATTN_LOCAL = 1       # sliding-window causal attention
+RECURRENT = 2        # RG-LRU recurrent block (RecurrentGemma)
+RWKV = 3             # RWKV6 time-mix block (not ported)
 
 
 @dataclass(frozen=True)
@@ -39,13 +44,13 @@ class MLAConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Unified model configuration (``arch_type`` "unet" is the one the
-    port serves)."""
+    """Unified model configuration: ``arch_type`` "unet" (the paper's
+    DDPM U-Net) or "decoder" (the causal LM stack)."""
     name: str
     arch_type: str
     source: str = ""
 
-    # --- transformer backbone (carried for manifest compatibility) ----------
+    # --- transformer backbone ----------------------------------------------
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -102,6 +107,11 @@ class ModelConfig:
                 object.__setattr__(self, "num_kv_heads", self.num_heads)
             if self.lru_width == 0:
                 object.__setattr__(self, "lru_width", self.d_model)
+
+    def layer_kinds(self) -> Tuple[int, ...]:
+        """Per-layer kind, the pattern cycled to ``num_layers``."""
+        pat = self.layer_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.num_layers))
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

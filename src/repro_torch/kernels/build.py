@@ -41,6 +41,8 @@ SIGNATURES = {
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # w, partial, out, K, N, G, stream
     "group_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # a, b, h, B, S, W, bf16, stream
+    "rglru_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

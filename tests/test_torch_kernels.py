@@ -173,8 +173,8 @@ def test_group_l2_norms_rejects_uneven_groups():
 def test_build_sources_and_library_key():
     names = sorted(p.name for p in build.sources())
     assert names == ["block_masked_matmul.cu", "flash_attention.cu",
-                     "group_l2_norms.cu"]
+                     "group_l2_norms.cu", "rglru_scan.cu"]
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path == build.library_path()
     assert set(build.SIGNATURES) >= {"bmm_launch", "flash_attn_launch",
-                                     "group_l2_launch"}
+                                     "group_l2_launch", "rglru_scan_launch"}
