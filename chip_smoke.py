@@ -9,7 +9,9 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
 ``build/chip_smoke``):
 
 1. device   the card's name and count, and nvidia-smi's name/power limit;
-2. build    nvcc-builds the four kernels from ``src/repro_torch/kernels``;
+2. build    nvcc-builds the kernels from ``src/repro_torch/kernels`` (its
+            seconds, and each kernel's registers and spills from
+            ``-Xptxas=-v``, the whole report in ``DIR/ptxas.txt``);
 3. serve    ``python -m repro_torch.serve`` on a full-width CIFAR10_UNET
             checkpoint with random weights at 1/sqrt(fan_in) scale (16
             requests, 8 slots, 10 steps), dense and at
@@ -39,13 +41,17 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             LM_TOL of max|logit|; 2304 is past the 2048 window;
 8. kernels  every kernel against its plain PyTorch version on the card at
             each shape the serving, training and LM runs launched it with
-            (the matmul's forward and backward-dx launches alike), plus
-            masked cases (ratios 0 / 0.44 / 0.9, a fully masked N-block),
-            attention at hd=144, causal and windowed, and the scan on a
-            ragged shape and with a in [0.999, 1), in the dtype each ran
-            (fp32, TF32 off) and in bf16 (or fp32) beside it, each with
-            its tolerance and its time beside the plain version, the
-            library call (none computes the scan) and the bound;
+            (the matmul's backward-dx launches as the backward runs them,
+            reading w.T in place), plus masked cases (ratios 0 / 0.44 /
+            0.9, a fully masked N-block, a ragged unaligned 1000 x 999 x
+            77 forward and dx), attention at hd = 100 (the SIMT kernel:
+            rows TMA cannot address) and 144, causal and windowed, ragged
+            S = 1000 and S = 16, and the scan on a ragged shape and with a
+            in [0.999, 1), in the dtype each ran (fp32, TF32 off) and in
+            bf16 (or fp32) beside it, each with its tolerance and its time
+            beside the plain version, the library call (none computes the
+            scan) and the bound.  A matmul launch that splits K runs twice
+            and must give the same bits;
 9. forward  one full-width U-Net forward through the kernels against the
             same forward through the plain versions (on CPU copies of the
             weights and inputs, so device dispatch picks them), dense and
@@ -73,9 +79,10 @@ for the three U-Net kernels and the LM prefill for the scan:
 ``launches`` is its count there, and ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over its launches of each
 shape's time (count x time per launch; ``library_ms`` is null where no
-PyTorch call computes the function).  ``paths`` gives the same for
-every run, the matmul's training launches also split into forward and
-dx.  Any failure exits nonzero before the last line.
+PyTorch call computes the function), ``bound_share`` is bound_ms / ms
+and ``vs_library`` ms / library_ms.  ``paths`` gives the same for every
+run, the matmul's training launches also split into forward and dx.
+Any failure exits nonzero before the last line.
 """
 from __future__ import annotations
 
@@ -209,45 +216,60 @@ def to_device(tree, device):
 # ---------------------------------------------------------------------------
 
 def check_matmul(cases, gen, dev, log):
-    """cases: ((M, K, N), ratio or None, dtype, tally key or None)."""
+    """cases: ((M, K, N), ratio or None, dtype, tally key or None, role).
+    A "dx" case runs as the backward launches it: B = w.T read in place
+    from a row-major w (N, K).  A launch that splits K runs twice and
+    must give the same bits."""
     import torch
     from repro_torch.kernels.block_masked_matmul import ops as bmm
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for (M, K, N), ratio, dtype_name, key in cases:
+    for (M, K, N), ratio, dtype_name, key, role in cases:
         dt = getattr(torch, dtype_name)
+        dx = role == "dx"
         x = torch.randn(M, K, generator=gen, device=dev).to(dt)
-        w = (torch.randn(K, N, generator=gen, device=dev)
-             / K ** 0.5).to(dt)
+        w = (torch.randn(*((N, K) if dx else (K, N)), generator=gen,
+                         device=dev) / K ** 0.5).to(dt)
+        b = w.t() if dx else w           # the B operand, (K, N)
         cm = rm = None
         if ratio is not None:
             cm = (torch.rand(N, generator=gen, device=dev) >= ratio).float()
             rm = (torch.rand(K, generator=gen, device=dev)
                   >= ratio / 2).float()
-        got = bmm.block_masked_matmul(x, w, cm, rm)
-        want = bmm.block_masked_matmul_plain(x, w, cm, rm)
+
+        def kernel():
+            return bmm.block_masked_matmul(x, w, cm, rm, trans_b=dx)
+        got = kernel()
+        plan = bmm.plan(M, K, N)
+        again = kernel() if plan.splits > 1 else got
+        want = bmm.block_masked_matmul_plain(x, b, cm, rm)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         scale = max(1.0, float(want.float().abs().max()))
         tol = TOL[dtype_name] * scale
-        wmask = w if ratio is None else \
-            (w * cm[None, :].to(dt) * rm[:, None].to(dt))
+        wmask = b if ratio is None else \
+            (b * cm[None, :].to(dt) * rm[:, None].to(dt))
         kk = K if rm is None else int(rm.sum())
         nn = N if cm is None else int(cm.sum())
         elt = x.element_size()
         nbytes = (M * K + K * N + M * N) * elt \
             + (0 if ratio is None else 4 * (K + N))
         b_ms, b_by = bound_ms(2.0 * M * kk * nn, nbytes, dtype_name)
-        row = {"kernel": "block_masked_matmul", "key": key, "M": M, "K": K,
-               "N": N, "ratio": ratio, "dtype": dtype_name,
-               "max_abs_err": err, "tol": tol,
-               "ms": time_ms(lambda: bmm.block_masked_matmul(x, w, cm, rm)),
+        row = {"kernel": "block_masked_matmul", "key": key, "role": role,
+               "M": M, "K": K, "N": N, "ratio": ratio, "dtype": dtype_name,
+               "plan": plan._asdict(), "max_abs_err": err, "tol": tol,
+               "bitwise_repeat": bool(torch.equal(got, again)),
+               "ms": time_ms(kernel),
                "plain_ms": time_ms(
-                   lambda: bmm.block_masked_matmul_plain(x, w, cm, rm)),
+                   lambda: bmm.block_masked_matmul_plain(x, b, cm, rm)),
                "library_ms": time_ms(lambda: torch.matmul(x, wmask)),
                "bound_ms": b_ms, "bound_by": b_by}
         log(row)
-        require(err <= tol, f"block_masked_matmul {M}x{K}x{N} {dtype_name} "
-                            f"ratio={ratio}: err {err} > tol {tol}")
+        require(err <= tol, f"block_masked_matmul {M}x{K}x{N} {role} "
+                            f"{dtype_name} ratio={ratio}: err {err} > tol "
+                            f"{tol}")
+        require(row["bitwise_repeat"], f"block_masked_matmul {M}x{K}x{N} "
+                                       f"split {plan.splits} ways differs "
+                                       f"between two launches")
         worst[dtype_name] = max(worst[dtype_name], err)
     # a fully masked N-block writes exact zeros (tests/test_kernels.py:38)
     x = torch.randn(128, 128, generator=gen, device=dev)
@@ -298,7 +320,8 @@ def check_attention(cases, gen, dev, log):
                               dtype_name)
         row = {"kernel": "flash_attention", "key": key, "BH": BH, "S": Sq,
                "Skv": Skv, "hd": hd, "causal": causal, "window": window,
-               "dtype": dtype_name, "max_abs_err": err, "tol": tol,
+               "dtype": dtype_name, "variant": fa.variant(dt, hd),
+               "max_abs_err": err, "tol": tol,
                "ms": time_ms(lambda: fa.flash_attention_bhsd(
                    q, k, v, causal=causal, window=window)),
                "plain_ms": time_ms(lambda: fa.flash_attention_plain(
@@ -311,6 +334,15 @@ def check_attention(cases, gen, dev, log):
                             f"causal={causal} window={window} {dtype_name}: "
                             f"err {err} > tol {tol}")
         worst[dtype_name] = max(worst[dtype_name], err)
+    # bf16 tiles arrive by TMA: a base off 16 bytes is refused, not rerouted
+    q = torch.randn(8 * 64 * 64 + 1, generator=gen, device=dev).to(
+        torch.bfloat16)[1:].view(8, 64, 64)
+    try:
+        fa.flash_attention_bhsd(q, q, q)
+    except ValueError:
+        pass
+    else:
+        raise Failed("flash_attention launched on a misaligned bf16 q")
     return worst
 
 
@@ -383,11 +415,36 @@ def check_scan(cases, gen, dev, log):
     return worst
 
 
-def path_totals(rows, tally):
+def ptxas_summary(log: str):
+    """Each compiled kernel's registers and spill stores, from nvcc's
+    ``-Xptxas=-v`` report."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None,
+                   "spill_stores": None}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                cur["spill_stores"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
+def path_totals(rows, tally, role="fwd"):
     """One run's launches and count x time per launch, summed over the
-    shapes ``tally`` (tally key -> launches in that run) records; a time
-    no case has (``library_ms`` of the scan) stays None."""
-    by_key = {r["key"]: r for r in rows if r.get("key") is not None}
+    shapes ``tally`` (tally key -> launches in that run) records, each
+    timed as that run launched it (``role``: the matmul's "dx" cases read
+    w in place); a time no case has (``library_ms`` of the scan) stays
+    None.  Adds ``bound_share`` (bound_ms / ms) and ``vs_library`` (ms /
+    library_ms)."""
+    by_key = {r["key"]: r for r in rows if r.get("key") is not None
+              and r.get("role", "fwd") == role}
     out = {"launches": sum(tally.values()), **{k: 0.0 for k in TIMES}}
     by = {"bytes": 0.0, "operations": 0.0}
     for key, n in tally.items():
@@ -397,7 +454,26 @@ def path_totals(rows, tally):
                 else out[k] + n * r[k]
         by[r["bound_by"]] += n * r["bound_ms"]
     out["bound_by"] = max(by, key=by.get) if tally else None
-    return out
+    return shares(out)
+
+
+def shares(totals):
+    """``totals`` with bound_share and vs_library (None where a time is
+    0 or missing)."""
+    ms, lib = totals["ms"], totals["library_ms"]
+    totals["bound_share"] = totals["bound_ms"] / ms if ms else None
+    totals["vs_library"] = ms / lib if ms and lib else None
+    return totals
+
+
+def add_totals(a, b):
+    """Two disjoint sets of launches of one run, summed."""
+    out = {"launches": a["launches"] + b["launches"]}
+    for k in TIMES:
+        out[k] = None if a[k] is None or b[k] is None else a[k] + b[k]
+    out["bound_by"] = a["bound_by"] if a["bound_ms"] >= b["bound_ms"] \
+        else b["bound_by"]
+    return shares(out)
 
 
 # ---------------------------------------------------------------------------
@@ -652,8 +728,10 @@ def train_phase(cfg, dev, counters, zero_counters):
 
 
 # kernel-name fragments -> category, for the profile's device-time split
-PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",)),
-                      ("flash_attention", ("flash_kernel",)),
+PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",
+                                                "splitk_sum_kernel")),
+                      ("flash_attention", ("flash_simt_kernel",
+                                           "flash_tc_kernel")),
                       ("group_l2_norms", ("col_partials", "group_sums")),
                       ("rglru_scan", ("rglru_scan_kernel",)),
                       ("library_gemm", ("gemm", "gemv", "nvjet")))
@@ -852,8 +930,16 @@ def run(out_dir: str, profile: bool = False) -> dict:
     t0 = time.perf_counter()
     lib_path = build.build()
     build.library()
+    ptxas = ptxas_summary(build.build_log or "")
+    if build.build_log:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
+            f.write(build.build_log)
     emit("build", seconds=time.perf_counter() - t0,
-         compiled=build.build_seconds is not None, library=str(lib_path))
+         compiled=build.build_seconds is not None, library=str(lib_path),
+         kernels=len(ptxas),
+         spilling=[k for k in ptxas if k["spill_stores"]],
+         max_registers=max((k["registers"] for k in ptxas), default=None))
 
     from repro_torch import checkpoint
     from repro_torch.configs import CIFAR10_UNET
@@ -975,27 +1061,40 @@ def run(out_dir: str, profile: bool = False) -> dict:
         return "bfloat16" if dt == "float32" else "float32"
 
     try:
+        dx_keys = tallies["train"]["block_masked_matmul_dx"]
+        fwd_keys = [k for k in launched("block_masked_matmul")
+                    if any(tallies[p]["block_masked_matmul"].get(k, 0)
+                           > (dx_keys.get(k, 0) if p == "train" else 0)
+                           for p in PATHS)]
         mm_keys = launched("block_masked_matmul")
         serve_mm = set(launched("block_masked_matmul", ("dense", "pruned")))
         largest = sorted(set(tallies["train"]["block_masked_matmul"])
                          - serve_mm, key=lambda k: -k[0] * k[1] * k[2])[:4]
         cases = []
-        for key in mm_keys:
+        for key in fwd_keys:
             M, K, N, masked, dt = key
             ratio = 0.44 if masked else None
-            cases.append(((M, K, N), ratio, dt, key))
+            cases.append(((M, K, N), ratio, dt, key, "fwd"))
             # serving shapes in the other dtype too; training shapes at
             # the largest few
             if key in serve_mm or key in largest:
-                cases.append(((M, K, N), ratio, other(dt), None))
+                cases.append(((M, K, N), ratio, other(dt), None, "fwd"))
+        for key in sorted(dx_keys):      # as the backward launches them
+            M, K, N, masked, dt = key
+            cases.append(((M, K, N), 0.44 if masked else None, dt, key,
+                          "dx"))
         for shape in [(8, 27, 3), (8192, 1152, 128), (2048, 2304, 256),
-                      (512, 4608, 256)]:
+                      (512, 4608, 256), (1000, 999, 77)]:
             for dt in ("float32", "bfloat16"):
                 for ratio in (0.0, 0.44, 0.9):
-                    cases.append((shape, ratio, dt, None))
+                    cases.append((shape, ratio, dt, None, "fwd"))
+        for dt in ("float32", "bfloat16"):   # ragged, unaligned, in place
+            cases.append(((1000, 999, 77), 0.44, dt, None, "dx"))
         mm_err = check_matmul(cases, gen, dev, log)
         emit("kernels", kernel="block_masked_matmul",
              launched_shapes=len(mm_keys),
+             split_k_cases=sum(r.get("plan", {}).get("splits", 1) > 1
+                               for r in rows),
              train_dx_shapes=len(tallies["train"]["block_masked_matmul_dx"]),
              cases=len(cases), max_abs_err=mm_err, tol_rel=TOL)
 
@@ -1009,7 +1108,15 @@ def run(out_dir: str, profile: bool = False) -> dict:
         for dt in ("float32", "bfloat16"):
             att_cases += [((slots, 256, 256, 256), True, 0, dt, None),
                           ((slots, 256, 256, 256), False, 64, dt, None),
-                          ((slots, 200, 200, 256), True, 48, dt, None)]
+                          ((slots, 200, 200, 256), True, 48, dt, None),
+                          # rows TMA cannot address (200 bytes), and rows
+                          # it pads past hd (144 of 192)
+                          ((slots, 256, 256, 100), False, 0, dt, None),
+                          ((slots, 256, 256, 144), True, 0, dt, None),
+                          # a ragged S, causal without and with a window
+                          ((4, 1000, 1000, 256), True, 0, dt, None),
+                          ((4, 1000, 1000, 256), True, 256, dt, None),
+                          ((slots, 16, 16, 256), True, 0, dt, None)]
         att_err = check_attention(att_cases, gen, dev, log)
         emit("kernels", kernel="flash_attention",
              launched_shapes=len(att_keys), cases=len(att_cases),
@@ -1078,14 +1185,15 @@ def run(out_dir: str, profile: bool = False) -> dict:
             "group_l2_norms": l2_err,
             "rglru_scan": scan_err["float32"]}
     for name, err in errs.items():
-        paths = {p: path_totals(rows, tallies[p][name]) for p in PATHS}
+        paths = {p: path_totals(rows, tallies[p][name]) for p in PATHS
+                 if not (p == "train" and name == "block_masked_matmul")}
         if name == "block_masked_matmul":
             dx = tallies["train"]["block_masked_matmul_dx"]
             fwd = {k: n - dx.get(k, 0)
                    for k, n in tallies["train"][name].items()}
-            paths["train"]["fwd"] = path_totals(
-                rows, {k: n for k, n in fwd.items() if n})
-            paths["train"]["dx"] = path_totals(rows, dx)
+            f = path_totals(rows, {k: n for k, n in fwd.items() if n})
+            d = path_totals(rows, dx, role="dx")
+            paths["train"] = {**add_totals(f, d), "fwd": f, "dx": d}
         main = paths[MAIN_PATHS[name]]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name],
@@ -1093,6 +1201,8 @@ def run(out_dir: str, profile: bool = False) -> dict:
                         "launches": main["launches"], "max_abs_err": err,
                         **{k: main[k] for k in TIMES},
                         "bound_by": main["bound_by"],
+                        "bound_share": main["bound_share"],
+                        "vs_library": main["vs_library"],
                         "main_path": MAIN_PATHS[name], "paths": paths})
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "JAX or the JAX package was imported")

@@ -1,24 +1,46 @@
-// Block-masked matmul for Hopper (sm_90a): y = x @ (w * col_mask[None, :] * row_mask[:, None]).
+// Block-masked matmul for Hopper (sm_90a): y = x @ (B * col_mask[None, :] * row_mask[:, None]),
+// where B is w (K, N) or, with trans_b, w.T read in place from a row-major w (N, K).
 //
 // Replaces the TPU kernel repro/kernels/block_masked_matmul/block_masked_matmul.py:block_masked_matmul.
-// x (M, K), w (K, N) row-major, float32 or bfloat16; masks float32 (NULL = all ones); y (M, N) in x's
-// type, accumulated in float32 registers with IEEE fp32 FMAs (no TF32, no tensor cores).
+// x (M, K) row-major, float32 or bfloat16; masks float32 (NULL = all ones); y (M, N) in x's type,
+// accumulated in float32 registers with IEEE fp32 FMAs (no TF32, no tensor cores: the port's
+// training and serving paths run fp32 and their parity checks hold fp32 sums).
 //
-// Bound on the H100: the serving GEMMs are compute-bound (K >= 128 gives well over the card's ~20
-// fp32 FLOP/byte balance point), so the kernel reuses each loaded element across a 4x4 register tile
-// per thread from 64x64 shared-memory tiles. Like the TPU kernel's pl.when, a block whose 64 output
-// columns are all masked skips every K step and writes exact zeros, and a 16-deep K step whose rows are
-// all masked is skipped. The fine masks are applied to w on its load into shared memory, so partly
-// masked tiles stay exact. Ragged M, K and N edges are masked on load and store, so any shape launches.
-// wgmma, TMA and pipelining are left for later work.
+// What bounds it on the H100. Every main-path shape has K >= 27 and an arithmetic intensity far above
+// the card's fp32 balance point (67 TFLOP/s over 3.35 TB/s is 20 FLOP/byte), so the bound is the FMA
+// rate. In practice the large training shapes (M = 8192-32768) are limited by shared-memory reads
+// per FMA, and the small ones (M = 8-512 with K up to 4608, serving's M = 8) by how few output tiles
+// there are to spread over 132 SMs and by the host's cost per launch.
+//
+// What the design does about it:
+// - Register tiles of 8x8 per thread: each k row a thread reads 8 values of x and 8 of B from shared
+//   memory as four 16-byte loads and does 64 FMAs with them. Block tiles of 128 or 64 rows by 128
+//   or 64 columns, chosen per shape by the wrapper's plan (ops.py:plan). The 64x64 tile runs four
+//   thread groups that split each 32-row k step between them and are summed in group order at the
+//   end, so a shape with few output tiles still gets 256 threads a block without a second launch.
+//   Registers (-Xptxas=-v): 128 for the 128x128 and 64x64 tiles (256 threads, 2 blocks an SM),
+//   147-168 for 128x64 and 64x128 (128 threads); no spills.
+// - A ring of cp.async stages (3 of 8 rows; 2 of 32 for the 64x64 tile): the next tiles are in
+//   flight while this one is multiplied. x (and w when read transposed) is K-contiguous and is
+//   transposed on its way into shared memory by 4-byte copies; w row-major is copied 16 bytes at a
+//   time when N % 4 == 0 and the base is 16-byte aligned, else 4 bytes. Ragged M, K and N edges are
+//   zero-filled by the copy (src-size 0), so any shape launches. bf16 inputs take the same tiles,
+//   converted to fp32 on a synchronous load (no launched path runs bf16 yet).
+// - Split-K for shapes whose output tiles cannot fill the SMs: slice z of the grid walks its own
+//   range of k steps and writes an fp32 partial tile to a workspace; a second kernel sums the slices
+//   in slice order (no atomics), so the result is the same bits on every run.
+// - Masks skip work as the TPU kernel's pl.when does: a block whose columns are all masked writes
+//   zeros without reading K; a k step whose rows are all masked is never loaded (each thread walks
+//   the same list of live steps); partly masked tiles are multiplied by the masks in shared memory,
+//   (w * col) * row as the plain version rounds it, before they are used.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
-constexpr int TM = BM / 16, TN = BN / 16;  // 4x4 outputs per thread on a 16x16 thread grid
+constexpr int BK = 8, PAD = 4;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -28,97 +50,321 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-bmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ cm,
-           const float* __restrict__ rm, T* __restrict__ y, int M, int K, int N) {
-  __shared__ float xs[BK][BM + 4];  // x tile stored transposed: xs[k][m]
-  __shared__ float ws[BK][BN + 4];
-  __shared__ float cms[BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 4- and 16-byte async copies; a copy with ok == false fills zeros and reads nothing
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  int live = 0;
-  if (tid < BN) {
-    const int n = n0 + tid;
-    const float c = n < N ? (cm ? cm[n] : 1.f) : 0.f;
-    cms[tid] = c;
-    live = c != 0.f;
-  }
-  const bool nlive = __syncthreads_or(live);
+// A BM x BN output tile. KG groups of (BM / 8) * (BN / 8) threads each own the whole tile's 8x8
+// register tiles over their own BK rows of each DEPTH = KG * BK deep stage, and are summed in group
+// order at the end: KG = 4 gives the 64x64 tile 256 threads, for shapes with few output tiles.
+template <int BM, int BN, int KG>
+struct Tiles {
+  static constexpr int GROUP = (BM / 8) * (BN / 8), THREADS = KG * GROUP, DEPTH = KG * BK;
+  static constexpr int STAGES = KG > 1 ? 2 : 3;  // 35 KB of static shared memory either way
+  float a[STAGES][DEPTH][BM + PAD];  // x tile, transposed: a[k][m]
+  float b[STAGES][DEPTH][BN + PAD];  // B tile: b[k][n]
+  float cm[BN];
+};
 
-  float acc[TM][TN];
+// A K-contiguous operand (x, or w read as w.T), rows r0.. of a (R, K) row-major matrix, into
+// dst[k][r]: thread t copies element (r = t / DEPTH + i * (THREADS / DEPTH), k = t % DEPTH).
+template <typename T, int ROWS, int DEPTH, int THREADS, int LD>
+__device__ __forceinline__ void load_kmajor(float (*dst)[LD], const T* src, int r0, int R, int k0,
+                                            int K, int tid) {
+  constexpr int STEP = THREADS / DEPTH;
+  const int k = k0 + tid % DEPTH;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  if (nlive) {
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      if (rm) {  // uniform branch: skip a K step whose rows are all masked
-        int kl = 0;
-        if (tid < BK) kl = (k0 + tid < K) && rm[k0 + tid] != 0.f;
-        if (!__syncthreads_or(kl)) continue;
-      }
-      for (int i = tid; i < BM * BK; i += THREADS) {
-        const int r = i / BK, c = i % BK, m = m0 + r, k = k0 + c;
-        xs[c][r] = (m < M && k < K) ? to_f(x[(int64_t)m * K + k]) : 0.f;
-      }
-      for (int i = tid; i < BK * BN; i += THREADS) {
-        const int r = i / BN, c = i % BN, k = k0 + r, n = n0 + c;
-        float v = 0.f;
-        if (k < K && n < N) {
-          v = to_f(w[(int64_t)k * N + n]) * cms[c];
-          if (rm) v *= rm[k];
-        }
-        ws[r][c] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) y[(int64_t)m * N + n] = from_f<T>(acc[i][j]);
+  for (int i = 0; i < ROWS / STEP; ++i) {
+    const int rl = tid / DEPTH + i * STEP, r = r0 + rl;
+    const bool ok = r < R && k < K;
+    const T* p = ok ? src + (int64_t)r * K + k : src;
+    if constexpr (std::is_same<T, float>::value) {
+      cp4(&dst[tid % DEPTH][rl], p, ok);
+    } else {
+      dst[tid % DEPTH][rl] = ok ? to_f(*p) : 0.f;
     }
   }
 }
 
+// w (K, N) row-major, rows k0.. and columns n0.. into dst[k][n]
+template <typename T, int BN, int DEPTH, int THREADS, int LD>
+__device__ __forceinline__ void load_nmajor(float (*dst)[LD], const T* w, int k0, int K, int n0,
+                                            int N, bool vec, int tid) {
+  if (std::is_same<T, float>::value && vec) {
+    constexpr int CHUNKS = DEPTH * BN / 4;
+    for (int i = tid; i < CHUNKS; i += THREADS) {
+      const int kl = i / (BN / 4), nl = (i % (BN / 4)) * 4, k = k0 + kl, n = n0 + nl;
+      const bool ok = k < K && n < N;  // N % 4 == 0: a chunk is all in or all out
+      cp16(&dst[kl][nl], reinterpret_cast<const float*>(ok ? w + (int64_t)k * N + n : w), ok);
+    }
+  } else {
+    for (int i = tid; i < DEPTH * BN; i += THREADS) {
+      const int kl = i / BN, nl = i % BN, k = k0 + kl, n = n0 + nl;
+      const bool ok = k < K && n < N;
+      const T* p = ok ? w + (int64_t)k * N + n : w;
+      if constexpr (std::is_same<T, float>::value) {
+        cp4(&dst[kl][nl], p, ok);
+      } else {
+        dst[kl][nl] = ok ? to_f(*p) : 0.f;
+      }
+    }
+  }
+}
+
+// a k step of DEPTH rows is live unless every row is masked
+template <int DEPTH>
+__device__ __forceinline__ bool step_live(const float* rm, int s, int K) {
+  if (!rm) return true;
+  for (int i = 0; i < DEPTH; ++i) {
+    const int k = s * DEPTH + i;
+    if (k < K && rm[k] != 0.f) return true;
+  }
+  return false;
+}
+template <int DEPTH>
+__device__ __forceinline__ int next_live(const float* rm, int s, int s_end, int K) {
+  while (s < s_end && !step_live<DEPTH>(rm, s, K)) ++s;
+  return s;
+}
+
+// grid (M tiles, N tiles, splits); slice z covers k steps of DEPTH rows [z * per, min((z + 1) * per,
+// steps)). splits == 1 writes y; otherwise slice z writes its fp32 partial (M, N) tile to ws[z].
+// Resident blocks per SM as ops.py:SLOTS counts them: registers capped at 128 for 256 threads,
+// 170 for 128 or 64.
+template <typename T, int BM, int BN, int KG, bool TRANS_B>
+__global__ void __launch_bounds__(Tiles<BM, BN, KG>::THREADS,
+                                  Tiles<BM, BN, KG>::THREADS == 256
+                                      ? 2 : 384 / Tiles<BM, BN, KG>::THREADS)
+bmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ cm,
+           const float* __restrict__ rm, T* __restrict__ y, float* __restrict__ ws, int M, int K,
+           int N, int per, int vec) {
+  using Tl = Tiles<BM, BN, KG>;
+  constexpr int THREADS = Tl::THREADS, DEPTH = Tl::DEPTH, STAGES = Tl::STAGES, TX = BN / 8;
+  __shared__ __align__(16) Tl sm;
+  const int tid = threadIdx.x, g = tid / Tl::GROUP, gt = tid % Tl::GROUP;
+  const int tx = gt % TX, ty = gt / TX;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int steps = (K + DEPTH - 1) / DEPTH;
+  const int s_begin = blockIdx.z * per, s_end = min(s_begin + per, steps);
+
+  int live = 0;
+  for (int i = tid; i < BN; i += THREADS) {
+    const int n = n0 + i;
+    const float c = n < N ? (cm ? cm[n] : 1.f) : 0.f;
+    sm.cm[i] = c;
+    live |= c != 0.f;
+  }
+  const bool nlive = __syncthreads_or(live);
+  const bool masked = cm || rm;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  if (nlive) {
+    int next = next_live<DEPTH>(rm, s_begin, s_end, K);  // the next step to load
+    int loaded[STAGES];                                   // the step each stage holds
+    auto load = [&](int stage, int s) {
+      load_kmajor<T, BM, DEPTH, THREADS, BM + PAD>(sm.a[stage], x, m0, M, s * DEPTH, K, tid);
+      if constexpr (TRANS_B) {
+        load_kmajor<T, BN, DEPTH, THREADS, BN + PAD>(sm.b[stage], w, n0, N, s * DEPTH, K, tid);
+      } else {
+        load_nmajor<T, BN, DEPTH, THREADS, BN + PAD>(sm.b[stage], w, s * DEPTH, K, n0, N, vec,
+                                                     tid);
+      }
+      loaded[stage] = s;
+    };
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      loaded[st] = -1;
+      if (next < s_end) {
+        load(st, next);
+        next = next_live<DEPTH>(rm, next + 1, s_end, K);
+      }
+      cp_commit();  // empty groups keep the wait counts uniform
+    }
+    loaded[STAGES - 1] = -1;
+    for (int it = 0;; ++it) {
+      const int cur = it % STAGES;
+      cp_wait<STAGES - 2>();
+      __syncthreads();  // stage cur has landed; stage (it - 1) % STAGES is free
+      if (loaded[cur] < 0) break;
+      {
+        const int ld = (it + STAGES - 1) % STAGES;
+        loaded[ld] = -1;
+        if (next < s_end) {
+          load(ld, next);
+          next = next_live<DEPTH>(rm, next + 1, s_end, K);
+        }
+        cp_commit();
+      }
+      if (masked) {  // fine masks on w as loaded: (w * col) * row
+        const int k0 = loaded[cur] * DEPTH;
+        for (int i = tid; i < DEPTH * BN; i += THREADS) {
+          const int kl = i / BN, nl = i % BN, k = k0 + kl;
+          float v = sm.b[cur][kl][nl] * sm.cm[nl];
+          if (rm) v *= k < K ? rm[k] : 0.f;
+          sm.b[cur][kl][nl] = v;
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int kk = g * BK; kk < g * BK + BK; ++kk) {
+        float a[8], b[8];
+        const float4 a0 = *reinterpret_cast<const float4*>(&sm.a[cur][kk][ty * 4]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&sm.a[cur][kk][BM / 2 + ty * 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&sm.b[cur][kk][tx * 4]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&sm.b[cur][kk][BN / 2 + tx * 4]);
+        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  if constexpr (KG > 1) {  // group 0 adds groups 1, 2, ... in order, through the stage memory
+    cp_wait<0>();
+    float* red = &sm.a[0][0][0];
+    static_assert(sizeof(sm.a) >= sizeof(float) * BM * BN, "no room to sum the groups");
+    for (int g2 = 1; g2 < KG; ++g2) {
+      __syncthreads();
+      if (g == g2) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) red[(ty * 8 + i) * BN + tx * 8 + j] = acc[i][j];
+      }
+      __syncthreads();
+      if (g == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] += red[(ty * 8 + i) * BN + tx * 8 + j];
+      }
+    }
+    if (g != 0) return;
+  }
+
+  const bool split = gridDim.z > 1;
+  float* wsz = split ? ws + (int64_t)blockIdx.z * M * N : nullptr;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * (BN / 2) + tx * 4;
+      if (n >= N) continue;
+      const float* v = &acc[i][4 * h];
+      if ((split || std::is_same<T, float>::value) && N % 4 == 0) {  // 16-byte aligned rows
+        float* dst = split ? wsz + (int64_t)m * N + n
+                           : reinterpret_cast<float*>(y + (int64_t)m * N + n);
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (n + j >= N) break;
+          if (split) {
+            wsz[(int64_t)m * N + n + j] = v[j];
+          } else {
+            y[(int64_t)m * N + n + j] = from_f<T>(v[j]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// y = sum over the slices of ws (splits, n), in slice order
+template <typename T>
+__global__ void splitk_sum_kernel(const float* __restrict__ ws, T* __restrict__ y, int64_t n,
+                                  int splits) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float s = ws[i];
+    for (int z = 1; z < splits; ++z) s += ws[(int64_t)z * n + i];
+    y[i] = from_f<T>(s);
+  }
+}
+
+template <typename T, int BM, int BN, int KG>
+int launch(const void* x, const void* w, const float* cm, const float* rm, void* y, float* ws,
+           int M, int K, int N, int trans_b, int splits, int per, int vec, cudaStream_t s) {
+  using Tl = Tiles<BM, BN, KG>;
+  const int64_t steps = (K + Tl::DEPTH - 1) / Tl::DEPTH;
+  if (splits < 1 || per < 1 || (int64_t)splits * per < steps || (splits > 1 && !ws) ||
+      (splits > 1 && (int64_t)(splits - 1) * per >= steps))  // a slice would be empty
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* yt = static_cast<T*>(y);
+  if (trans_b) {
+    bmm_kernel<T, BM, BN, KG, true><<<grid, Tl::THREADS, 0, s>>>(xt, wt, cm, rm, yt, ws, M, K, N,
+                                                                 per, vec);
+  } else {
+    bmm_kernel<T, BM, BN, KG, false><<<grid, Tl::THREADS, 0, s>>>(xt, wt, cm, rm, yt, ws, M, K, N,
+                                                                  per, vec);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int64_t n = (int64_t)M * N;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  splitk_sum_kernel<T><<<blocks, 256, 0, s>>>(ws, yt, n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tiles ops.py:plan chooses from; 64x64 runs four K groups (ops.py:KGROUPS)
+template <typename T>
+int launch_tile(int bm, int bn, const void* x, const void* w, const float* cm, const float* rm,
+                void* y, float* ws, int M, int K, int N, int trans_b, int splits, int per, int vec,
+                cudaStream_t s) {
+#define BMM_TILE(BM_, BN_, KG_)                                                                 \
+  if (bm == BM_ && bn == BN_)                                                                 \
+    return launch<T, BM_, BN_, KG_>(x, w, cm, rm, y, ws, M, K, N, trans_b, splits, per, vec, s);
+  BMM_TILE(128, 128, 1)
+  BMM_TILE(128, 64, 1)
+  BMM_TILE(64, 128, 1)
+  BMM_TILE(64, 64, 4)
+#undef BMM_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
+// bm x bn blocks (128 or 64 each); splits > 1 needs ws of splits * M * N floats; per: k steps per
+// slice (of 8 rows, 32 for the 64x64 tile), with every slice non-empty; vec: 16-byte copies of w
 extern "C" int bmm_launch(const void* x, const void* w, const void* cm, const void* rm, void* y,
-                          int M, int K, int N, int bf16, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                          void* ws, int M, int K, int N, int bf16, int trans_b, int bm, int bn,
+                          int splits, int per, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    bmm_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const float*>(cm), static_cast<const float*>(rm),
-        static_cast<__nv_bfloat16*>(y), M, K, N);
-  } else {
-    bmm_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(cm),
-        static_cast<const float*>(rm), static_cast<float*>(y), M, K, N);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const float* c = static_cast<const float*>(cm);
+  const float* r = static_cast<const float*>(rm);
+  float* wsf = static_cast<float*>(ws);
+  return bf16 ? launch_tile<__nv_bfloat16>(bm, bn, x, w, c, r, y, wsf, M, K, N, trans_b, splits,
+                                           per, vec, s)
+              : launch_tile<float>(bm, bn, x, w, c, r, y, wsf, M, K, N, trans_b, splits, per, vec,
+                                   s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -16,22 +16,114 @@ tensor launches the kernel (and counts the launch in
 :class:`MaskedMatmul` makes it differentiable, as the reference's
 ``custom_vjp`` does (``repro/models/ops.py:_masked_matmul_pallas_bwd``):
 dx is the same kernel on ``g`` and ``w.T`` with the masks swapped, so
-pruned tiles are skipped in the backward too; dw is the masked fp32
+pruned tiles are skipped in the backward too (the kernel reads ``w.T``
+in place from ``w``); dw is the masked fp32
 ``x.T @ g``, a plain product outside any kernel in the reference as well.
 The launches that compute a dx are tallied apart, in
 ``block_masked_matmul.dx_shapes``.
 """
 from __future__ import annotations
 
+import functools
 from collections import Counter
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build
 
-DTYPES = (torch.float32, torch.bfloat16)
-MAX_M = 65535 * 64           # the grid's y extent times the 64-row tile
+DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+SMS = 132                    # the H100 SXM's streaming multiprocessors
+BK = 8                       # the rows of K one thread group takes a step
+# block tiles (bm, bn) -> thread groups splitting each k step in the
+# block (the 64 x 64 tile's 4 groups give it 256 threads for shapes with
+# few output tiles), threads, and blocks an SM holds at once (by
+# registers: 128 a thread at 256 threads, 170 at 128)
+KGROUPS = {(128, 128): 1, (128, 64): 1, (64, 128): 1, (64, 64): 4}
+THREADS = {t: KGROUPS[t] * t[0] * t[1] // 64 for t in KGROUPS}
+SLOTS = {t: 2 if THREADS[t] == 256 else 3 for t in KGROUPS}
+SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)   # split-K candidates
+# the plan's split-K cost model, fitted to every fp32 shape the training
+# and serving paths launch, timed under each tile and split on an H100:
+# an SM's FMAs per microsecond at full occupancy (the 64 x 64 tile's at
+# RATE_64 of it: it reads twice the operand bytes per FMA and sums its K
+# groups), the warps it needs for that, and a split's device cost (its partials written and read again,
+# the summing kernel); on the host, a launch's own cost and what a split
+# adds to it (the workspace's allocation, a second launch)
+FMA_PER_US = 1.6e5
+RATE_64 = 0.8
+FULL_WARPS = 12
+WS_BYTES_PER_US = 4e6
+SPLIT_US = 4.0
+HOST_US = 16.0
+SPLIT_HOST_US = 12.0
+
+
+class Plan(NamedTuple):
+    """How one launch is cut: ``bm`` x ``bn`` output blocks, K cut into
+    ``splits`` slices of ``per`` k steps of :meth:`depth` rows (the last
+    may be shorter, none is empty)."""
+    bm: int
+    bn: int
+    splits: int
+    per: int
+
+    def depth(self) -> int:
+        return BK * KGROUPS[self.bm, self.bn]
+
+    def blocks(self, M: int, N: int) -> int:
+        return -(-M // self.bm) * -(-N // self.bn) * self.splits
+
+
+def _cost_us(p: Plan, M: int, N: int) -> float:
+    """Modelled time: the busiest SM's FMAs over its rate, the rate cut
+    when the SM holds fewer than FULL_WARPS warps, plus a split's device
+    cost; never less than the launch's host cost."""
+    per_sm = -(-p.blocks(M, N) // SMS)
+    warps = min(per_sm, SLOTS[p.bm, p.bn]) * THREADS[p.bm, p.bn] // 32
+    rate = FMA_PER_US * (RATE_64 if p.bm == p.bn == 64 else 1.0)
+    t = per_sm * p.per * p.bm * p.bn * p.depth() \
+        / (rate * min(1.0, warps / FULL_WARPS))
+    host = HOST_US
+    if p.splits > 1:
+        t += SPLIT_US + 8.0 * p.splits * M * N / WS_BYTES_PER_US
+        host += SPLIT_HOST_US
+    return max(t, host)
+
+
+def _edge(n: int) -> int:
+    """64 where 64-wide tiles pad n less than 128-wide ones, else 128."""
+    return 64 if -(-n // 64) * 64 < -(-n // 128) * 128 else 128
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, K: int, N: int) -> Plan:
+    """The kernel variant for an (M, K) @ (K, N) launch.
+
+    Two candidate tiles: each block edge 64 where that pads M (or N)
+    less than 128, else 128 (N's edge drops to 64 when 128-wide tiles
+    could not give every SM a block even one k step a slice), and the
+    64 x 64 tile with its four K groups.  For each, the split-K ladder;
+    the least modelled time (:func:`_cost_us`) wins.  A tile whose
+    output blocks already fill every SM's slots is not split.
+    """
+    bm, bn = _edge(M), _edge(N)
+    if bn == 128 and -(-M // bm) * -(-N // bn) \
+            * min(-(-K // BK), SPLITS[-1]) < SMS:
+        bn = 64
+    best = None
+    for tile in dict.fromkeys(((bm, bn), (64, 64))):
+        steps = max(1, -(-K // (BK * KGROUPS[tile])))
+        tiles = -(-M // tile[0]) * -(-N // tile[1])
+        for s in SPLITS if tiles < SMS * SLOTS[tile] else (1,):
+            if s > steps:
+                break
+            per = -(-steps // s)
+            p = Plan(*tile, -(-steps // per), per)
+            c = _cost_us(p, M, N)
+            if best is None or c < best[0]:
+                best = (c, p)
+    return best[1]
 
 
 def block_masked_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -49,58 +141,67 @@ def block_masked_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def _check_mask(m, n, device, name):
-    if m is None:
-        return None
     if m.shape != (n,) or m.dtype != torch.float32 or m.device != device \
             or not m.is_contiguous():
         raise ValueError(f"{name} must be a contiguous float32 ({n},) tensor "
                          f"on {device}; got {tuple(m.shape)} {m.dtype} on "
                          f"{m.device}")
-    return m
 
 
 def block_masked_matmul(x: torch.Tensor, w: torch.Tensor,
                         col_mask: Optional[torch.Tensor] = None,
                         row_mask: Optional[torch.Tensor] = None, *,
-                        role: str = "fwd") -> torch.Tensor:
+                        role: str = "fwd", trans_b: bool = False
+                        ) -> torch.Tensor:
     """x (M, K) @ masked w (K, N) -> (M, N) in x's dtype.
 
-    Masks are float32 vectors (``None`` = all ones).  On a CUDA tensor
-    this launches the hand-written kernel or raises; on a CPU tensor it
-    runs the plain version.  ``role="dx"`` marks a backward launch, which
-    is tallied in ``dx_shapes`` as well.
+    Masks are float32 vectors (``None`` = all ones).  With ``trans_b``
+    the kernel reads B = ``w.T`` in place from a row-major ``w`` (N, K).
+    On a CUDA tensor this launches the hand-written kernel or raises; on
+    a CPU tensor it runs the plain version.  ``role="dx"`` marks a
+    backward launch, which is tallied in ``dx_shapes`` as well.
     """
-    if x.device.type == "cpu":
-        return block_masked_matmul_plain(x, w, col_mask, row_mask)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return block_masked_matmul_plain(x, w.t() if trans_b else w,
+                                             col_mask, row_mask)
         raise ValueError(f"no kernel for device {x.device}")
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+    if x.dim() != 2 or w.dim() != 2 \
+            or x.shape[1] != w.shape[1 if trans_b else 0]:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} do not "
                          f"form a matmul")
-    if x.dtype not in DTYPES or w.dtype != x.dtype:
+    dtype = DTYPES.get(x.dtype)
+    if dtype is None or w.dtype != x.dtype:
         raise ValueError(f"dtypes {x.dtype}, {w.dtype}: the kernel takes "
                          f"float32 or bfloat16, the same for x and w")
-    if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
+    dev = x.device
+    if w.device != dev or not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous and on one device")
     M, K = x.shape
-    N = w.shape[1]
-    if M > MAX_M:
-        raise ValueError(f"M={M} exceeds the kernel's {MAX_M} rows")
-    cm = _check_mask(col_mask, N, x.device, "col_mask")
-    rm = _check_mask(row_mask, K, x.device, "row_mask")
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    N = w.shape[0] if trans_b else w.shape[1]
+    if col_mask is not None:
+        _check_mask(col_mask, N, dev, "col_mask")
+    if row_mask is not None:
+        _check_mask(row_mask, K, dev, "row_mask")
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0 or N == 0:
         return y
-    lib = build.library()
-    err = lib.bmm_launch(x.data_ptr(), w.data_ptr(),
-                         None if cm is None else cm.data_ptr(),
-                         None if rm is None else rm.data_ptr(),
-                         y.data_ptr(), M, K, N,
-                         int(x.dtype == torch.bfloat16),
-                         build.stream_handle(x.device))
+    if N > 65535 * 64:
+        raise ValueError(f"N={N} exceeds the kernel grid's 65535 tiles")
+    p = plan(M, K, N)
+    ws = None if p.splits == 1 else \
+        torch.empty((p.splits, M, N), dtype=torch.float32, device=dev)
+    wp = w.data_ptr()
+    # 16-byte copies of w's rows (not when read transposed)
+    vec = not trans_b and N % 4 == 0 and wp % 16 == 0
+    err = build.library().bmm_launch(
+        x.data_ptr(), wp, None if col_mask is None else col_mask.data_ptr(),
+        None if row_mask is None else row_mask.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, K, N,
+        int(dtype == "bfloat16"), int(trans_b), p.bm, p.bn, p.splits, p.per,
+        int(vec), build.stream_handle(dev))
     build.check(err, "block_masked_matmul")
-    key = (M, K, N, cm is not None or rm is not None,
-           str(x.dtype).removeprefix("torch."))
+    key = (M, K, N, col_mask is not None or row_mask is not None, dtype)
     block_masked_matmul.launches += 1
     block_masked_matmul.shapes[key] += 1
     if role == "dx":
@@ -127,10 +228,10 @@ class MaskedMatmul(torch.autograd.Function):
         x, w, col_mask, row_mask = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            # a contiguous copy of w.T; the kernel reads B row-major
-            dx = block_masked_matmul(g.to(w.dtype).contiguous(),
-                                     w.t().contiguous(), row_mask, col_mask,
-                                     role="dx").to(x.dtype)
+            # B = w.T, read in place from w
+            dx = block_masked_matmul(g.to(w.dtype).contiguous(), w,
+                                     row_mask, col_mask, role="dx",
+                                     trans_b=True).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = torch.matmul(x.t().float(), g.float())
             if row_mask is not None:

@@ -3,8 +3,11 @@
 Every ``csrc/*.cu`` under :mod:`repro_torch.kernels` is compiled by its
 own ``nvcc`` process (all started together) for ``sm_90a`` and linked
 into ``build/librepro_torch_kernels_<hash>.so`` at the repository root.
-The hash covers the sources and the flags, so an edited kernel rebuilds
-and an unchanged one is loaded as built.  The library exports plain C
+The hash covers every file under each ``csrc/`` (headers too) and the
+flags, so an edited kernel or header rebuilds and an unchanged one is
+loaded as built.  ``-Xptxas=-v`` makes each compile report its kernels'
+registers, shared memory and spills; :data:`build_log` keeps that
+report from the last build.  The library exports plain C
 functions and is bound with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).
 
@@ -29,16 +32,19 @@ KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 SIGNATURES = {
-    # x, w, col_mask, row_mask, y, M, K, N, bf16, stream
-    "bmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, o, BH, Sq, Skv, hd, causal, window, bf16, stream
-    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, col_mask, row_mask, y, workspace, M, K, N, bf16, trans_b, bm,
+    # bn, splits, per, vec, stream
+    "bmm_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P],
+    # q, k, v, o, BH, Sq, Skv, hd, causal, window, bf16, kernel, vec, stream
+    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
     # w, partial, out, K, N, G, stream
     "group_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
     # a, b, h, B, S, W, bf16, stream
@@ -47,10 +53,18 @@ SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
+build_log: Optional[str] = None     # nvcc's output of the last build
 
 
 def sources():
+    """The translation units: every ``csrc/*.cu``."""
     return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
+
+
+def csrc_files(kernels_dir: Path = KERNELS_DIR):
+    """Every file under each ``csrc/``: the sources and what they
+    include."""
+    return sorted(p for p in kernels_dir.glob("*/csrc/**/*") if p.is_file())
 
 
 def _nvcc() -> str:
@@ -63,18 +77,21 @@ def _nvcc() -> str:
                        "PATH)")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+def library_path(kernels_dir: Path = KERNELS_DIR,
+                 flags=tuple(NVCC_FLAGS)) -> Path:
+    """The library's path, keyed by the flags (include paths and link
+    libraries among them) and every file under each ``csrc/``."""
+    h = hashlib.sha256("\0".join(flags).encode())
+    for f in csrc_files(kernels_dir):
+        h.update(str(f.relative_to(kernels_dir)).encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
     """Compile and link the library if it is not built yet; return its
     path.  Raises ``RuntimeError`` with the compiler's output on failure."""
-    global build_seconds
+    global build_seconds, build_log
     out = library_path()
     if out.exists():
         return out
@@ -90,11 +107,12 @@ def build() -> Path:
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        errors = []
+        errors, logs = [], []
         for src, p in procs:
             log, _ = p.communicate()
+            logs.append(f"{src.name}:\n{log}")
             if p.returncode != 0:
-                errors.append(f"{src.name}:\n{log}")
+                errors.append(logs[-1])
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         tmp_so = Path(tmp) / out.name
@@ -106,6 +124,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_so, out)           # atomic: no half-written .so
     build_seconds = time.perf_counter() - t0
+    build_log = "\n".join(logs)
     return out
 
 
@@ -133,6 +152,8 @@ def check(err: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
-    """PyTorch's current stream on ``device``, as the C entry points
-    take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device`` (a CUDA device with an
+    index), as the C entry points take it: PyTorch's raw-stream query, a
+    microsecond where ``torch.cuda.current_stream`` builds a Stream
+    object (~5 us a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -4,8 +4,10 @@ Replaces the TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py:flash_attention_bhsd``
 with ``csrc/flash_attention.cu`` (the source says what bounds it on the
 H100 and how the design answers that).  Any S and any hd up to 256 (144
-after pruning) launch the kernel; the reference wrapper falls back to
-its oracle when S is not a multiple of 128.
+after pruning) launch a kernel; the reference wrapper falls back to its
+oracle when S is not a multiple of 128.  :func:`variant` picks one of
+the source's two kernels: bf16 on ``wgmma`` fed by TMA, or the
+register-tiled SIMT kernel (fp32, and bf16 rows TMA cannot address).
 
 :func:`flash_attention_bhsd` dispatches on the tensor's device: a CUDA
 tensor launches the kernel (counted in
@@ -30,6 +32,16 @@ from repro_torch.kernels import build
 DTYPES = (torch.float32, torch.bfloat16)
 HD_MAX = 256
 NEG_INF = -1e30
+BQ = {"simt": 64, "wgmma": 128}     # query rows per block
+KERNELS = {"simt": 0, "wgmma": 1}   # the C entry point's kernel argument
+
+
+def variant(dtype: torch.dtype, hd: int) -> str:
+    """The kernel for a launch: ``"wgmma"`` for bf16 whose rows TMA can
+    address (hd % 8 == 0: 16-byte row strides), else ``"simt"``."""
+    if dtype == torch.bfloat16 and hd % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def _scores(q, k, causal: bool, window: int) -> torch.Tensor:
@@ -78,9 +90,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0
                          ) -> torch.Tensor:
     """q (BH, Sq, hd); k, v (BH, Skv, hd) -> (BH, Sq, hd) in q's dtype."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
         raise ValueError(f"no kernel for device {q.device}")
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
@@ -88,8 +101,6 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v{tuple(v.shape)} are not (BH, S, hd)")
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
-    if BH > 65535:
-        raise ValueError(f"BH={BH} exceeds the kernel grid's 65535")
     if not 1 <= hd <= HD_MAX:
         raise ValueError(f"head dim {hd} outside the kernel's 1..{HD_MAX}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -103,10 +114,19 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o
     if Skv == 0:
         raise ValueError("attention over zero keys")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, o))
+    kern = variant(q.dtype, hd)
+    if kern == "wgmma" and not aligned:
+        raise ValueError("bf16 q, k and v must start 16-byte aligned: "
+                         "their tiles arrive by TMA")
+    if -(-Sq // BQ[kern]) > 65535:
+        raise ValueError(f"Sq={Sq} exceeds the kernel grid's 65535 query "
+                         f"tiles of {BQ[kern]}")
     lib = build.library()
     err = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 o.data_ptr(), BH, Sq, Skv, hd, int(causal),
                                 int(window), int(q.dtype == torch.bfloat16),
+                                KERNELS[kern], int(aligned and hd % 4 == 0),
                                 build.stream_handle(q.device))
     build.check(err, "flash_attention_bhsd")
     flash_attention_bhsd.launches += 1

@@ -101,22 +101,25 @@ def test_masked_matmul_dx_runs_the_matmul_wrapper_on_w_transposed(
         monkeypatch):
     """The backward's dx is the matmul wrapper itself, launched on
     (g, w.T) with the row mask as column mask and the column mask as row
-    mask, and marked as a dx launch."""
+    mask, and marked as a dx launch; w.T is read in place from w
+    (``trans_b``), not copied."""
     x, w, g, cm, rm = _mm_case(32, 24, 40, masked=True)
     calls = []
     real = bmm.block_masked_matmul
 
-    def spy(a, b, col_mask=None, row_mask=None, *, role="fwd"):
-        calls.append((tuple(a.shape), tuple(b.shape), col_mask, row_mask,
-                      role))
-        return real(a, b, col_mask, row_mask, role=role)
+    def spy(a, b, col_mask=None, row_mask=None, *, role="fwd",
+            trans_b=False):
+        calls.append((tuple(a.shape), tuple((b.t() if trans_b else b).shape),
+                      col_mask, row_mask, role, trans_b, b))
+        return real(a, b, col_mask, row_mask, role=role, trans_b=trans_b)
 
     monkeypatch.setattr(bmm, "block_masked_matmul", spy)
     _port_mm_grads(x, w, g, cm, rm)
-    assert [c[-1] for c in calls] == ["fwd", "dx"]
-    (fa_, fb, fcm, frm, _), (da, db, dcm, drm, _) = calls
+    assert [c[4] for c in calls] == ["fwd", "dx"]
+    (fa_, fb, fcm, frm, _, ft, fw), (da, db, dcm, drm, _, dt, dw) = calls
     assert (fa_, fb) == ((32, 24), (24, 40))
     assert (da, db) == ((32, 40), (40, 24))
+    assert not ft and dt and dw.data_ptr() == fw.data_ptr()
     np.testing.assert_array_equal(dcm.numpy(), rm)
     np.testing.assert_array_equal(drm.numpy(), cm)
     np.testing.assert_array_equal(fcm.numpy(), cm)

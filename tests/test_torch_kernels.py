@@ -170,7 +170,7 @@ def test_group_l2_norms_rejects_uneven_groups():
         gl2.group_l2_norms(torch.zeros(4, 10), 3)
 
 
-def test_build_sources_and_library_key():
+def test_build_sources_and_library_key(tmp_path):
     names = sorted(p.name for p in build.sources())
     assert names == ["block_masked_matmul.cu", "flash_attention.cu",
                      "group_l2_norms.cu", "rglru_scan.cu"]
@@ -178,3 +178,16 @@ def test_build_sources_and_library_key():
     assert path.parent == build.BUILD_DIR and path == build.library_path()
     assert set(build.SIGNATURES) >= {"bmm_launch", "flash_attn_launch",
                                      "group_l2_launch", "rglru_scan_launch"}
+    # the key covers every file under each csrc/ (an edited header
+    # rebuilds) and the flags (an added include path or link library)
+    csrc = tmp_path / "kern" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "kern.cu").write_text('#include "tile.cuh"\n')
+    (csrc / "tile.cuh").write_text("constexpr int T = 64;\n")
+    key = build.library_path(tmp_path)
+    assert build.library_path(tmp_path) == key
+    (csrc / "tile.cuh").write_text("constexpr int T = 128;\n")
+    assert build.library_path(tmp_path) != key
+    key = build.library_path(tmp_path)
+    assert build.library_path(tmp_path, (*build.NVCC_FLAGS, "-Iinclude")) \
+        != key
