@@ -51,7 +51,12 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             bf16 (or fp32) beside it, each with its tolerance and its time
             beside the plain version, the library call (none computes the
             scan) and the bound.  A matmul launch that splits K runs twice
-            and must give the same bits;
+            and must give the same bits.  Group-L2 is checked per launched
+            member signature (the whole table of a launch), in its dtype
+            and in bf16: forward within tolerance, a repeat bitwise equal,
+            the backward bitwise equal to 2 w g.  The scan must equal its
+            plain loop bitwise in every case; on TMA-addressable rows its
+            SIMT kernel is timed and checked beside it;
 9. forward  one full-width U-Net forward through the kernels against the
             same forward through the plain versions (on CPU copies of the
             weights and inputs, so device dispatch picks them), dense and
@@ -68,9 +73,13 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             the device's idle share, the traces for work on the step's
             speed (the training profile's post-processing adds ~4 min).
 
-Every kernel's counters (``.launches``, the per-shape ``.shapes`` and
-the matmul's ``.dx_shapes``) are set to 0 just before each serving run,
-the training run and each LM run, and read just after it.
+Every kernel's counters (``.launches``, the per-shape ``.shapes``, the
+matmul's ``.dx_shapes`` and group-L2's ``.bwd_launches`` and
+``.bwd_shapes``) are set to 0 just before each serving run, the training
+run and each LM run, and read just after it.  Group-L2 launches once per
+Omega evaluation and once per pruning score: the training run must
+launch it once a sparse step plus once at R_s, the 0.44 serving run
+once.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  In the kernels line each kernel's
@@ -81,7 +90,9 @@ for the three U-Net kernels and the LM prefill for the scan:
 shape's time (count x time per launch; ``library_ms`` is null where no
 PyTorch call computes the function), ``bound_share`` is bound_ms / ms
 and ``vs_library`` ms / library_ms.  ``paths`` gives the same for every
-run, the matmul's training launches also split into forward and dx.
+run, the matmul's training launches also split into forward and dx;
+group-L2's entry is its forward launches, and ``backward`` gives its
+backward kernel's on the training run.
 Any failure exits nonzero before the last line.
 """
 from __future__ import annotations
@@ -346,40 +357,102 @@ def check_attention(cases, gen, dev, log):
     return worst
 
 
-def check_group_l2(shapes, gen, dev, log):
-    """shapes: the (K, N, G) tally keys of the pruned run."""
+def signature_name(sig) -> str:
+    """A group-L2 signature in a few words, for the case log."""
+    import hashlib
+    shapes, members = sig
+    dts = sorted({dt for _, dt in shapes})
+    return (f"{len(members)} members of {len(shapes)} tensors, "
+            f"{'/'.join(dts)}, {hashlib.sha1(repr(sig).encode()).hexdigest()[:10]}")
+
+
+def check_group_l2(signatures, gen, dev, log):
+    """signatures: the launched tally keys (a launch's whole member
+    table).  Each runs on random tensors of its shapes, in its dtype, and
+    the first also in bf16: the forward against the plain version within
+    TOL["float32"] x max (fp32 sums on both sides), a repeat bitwise
+    equal, the backward bitwise equal to the plain 2 w g.  ``library_ms``
+    is the loop of one ``einsum`` a member that a PyTorch user would
+    write; the bound reads every member element once."""
     import torch
     from repro_torch.kernels.group_l2_norms import ops as gl2
     worst = 0.0
-    for K, N, G in shapes:
-        w = torch.randn(K, N, generator=gen, device=dev)
-        a = gl2.group_l2_norms(w, G)
-        b = gl2.group_l2_norms(w, G)
-        want = gl2.group_l2_norms_plain(w, G)
+    cases = [(sig, sig) for sig in signatures]
+    if signatures:
+        shapes, members = signatures[0]
+        cases.append(((tuple((sh, "bfloat16") for sh, _ in shapes),
+                       members), None))
+    for sig, key in cases:
+        tab = gl2.table(sig)
+        tensors = [torch.randn(shape, generator=gen, device=dev).to(
+            getattr(torch, dt)) for shape, dt in sig[0]]
+        g = torch.randn(tab.units, generator=gen, device=dev)
+        got = gl2.segmented_sq_norms(tensors, tab)
+        again = gl2.segmented_sq_norms(tensors, tab)
+        want = gl2.segmented_sq_norms_plain(tensors, tab)
+        dw = gl2.segmented_sq_norms_backward(tensors, tab, g)
+        dw_want = gl2.segmented_sq_norms_backward_plain(tensors, tab, g)
         torch.cuda.synchronize()
-        err = float((a - want).abs().max())
+        err = float((got - want).abs().max())
         tol = TOL["float32"] * float(want.abs().max())
-        b_ms, b_by = bound_ms(2.0 * K * N, 4 * (K * N + G), "float32")
-        w3 = w.view(K, G, N // G)
-        row = {"kernel": "group_l2_norms", "key": (K, N, G), "K": K, "N": N,
-               "G": G, "dtype": "float32", "max_abs_err": err,
-               "tol": tol, "deterministic": bool(torch.equal(a, b)),
-               "ms": time_ms(lambda: gl2.group_l2_norms(w, G)),
-               "plain_ms": time_ms(lambda: gl2.group_l2_norms_plain(w, G)),
-               "library_ms": time_ms(
-                   lambda: torch.einsum("kgc,kgc->g", w3, w3)),
+        views = [(t.reshape(v).narrow(1, m.offset, m.size * m.chunk)
+                  .unflatten(1, (m.size, m.chunk)))
+                 for m, v in zip(tab.members, tab.views)
+                 for t in (tensors[m.tensor],)]
+
+        def library():
+            out = []
+            for _, _, m0, m1 in tab.groups:
+                acc = None
+                for v in views[m0:m1]:
+                    vf = v.float()
+                    s = torch.einsum("okci,okci->k", vf, vf)
+                    acc = s if acc is None else acc + s
+                out.append(acc)
+            return out
+
+        nbytes = tab.member_bytes()
+        elems = sum(v.numel() for v in views)
+        zeroed = sum(t.numel() * t.element_size()
+                     for t, c in zip(tensors, tab.covered) if not c)
+        dtypes = "/".join(sorted({dt for _, dt in sig[0]}))
+        common = {"kernel": "group_l2_norms", "key": key,
+                  "signature": signature_name(sig),
+                  "members": len(tab.members), "tensors": len(tensors),
+                  "units": tab.units, "work_items": tab.counts[1],
+                  "dtype": dtypes}
+        b_ms, b_by = bound_ms(2.0 * elems, nbytes + 4 * tab.units, "float32")
+        row = {**common, "role": "fwd", "max_abs_err": err, "tol": tol,
+               "bitwise_repeat": bool(torch.equal(got, again)),
+               "ms": time_ms(lambda: gl2.segmented_sq_norms(tensors, tab)),
+               "plain_ms": time_ms(
+                   lambda: gl2.segmented_sq_norms_plain(tensors, tab)),
+               "library_ms": time_ms(library),
                "bound_ms": b_ms, "bound_by": b_by}
         log(row)
-        require(err <= tol, f"group_l2_norms {(K, N)}: err {err} > {tol}")
-        require(row["deterministic"], f"group_l2_norms {(K, N)} differs "
-                                      f"between two runs")
+        b_ms, b_by = bound_ms(2.0 * elems, 2 * nbytes + 4 * tab.units
+                              + zeroed, "float32")
+        bwd_equal = all(torch.equal(x, y) for x, y in zip(dw, dw_want))
+        log({**common, "role": "bwd", "bitwise_equal": bwd_equal,
+             "ms": time_ms(lambda: gl2.segmented_sq_norms_backward(
+                 tensors, tab, g)),
+             "plain_ms": time_ms(lambda: gl2.segmented_sq_norms_backward_plain(
+                 tensors, tab, g)),
+             # no single PyTorch call computes the gradient
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        what = f"group_l2_norms {common['signature']}"
+        require(err <= tol, f"{what}: err {err} > {tol}")
+        require(row["bitwise_repeat"], f"{what}: two runs differ")
+        require(bwd_equal, f"{what}: the backward differs from 2 w g")
         worst = max(worst, err)
     return worst
 
 
 def check_scan(cases, gen, dev, log):
     """cases: ((B, S, W), a's range, dtype, tally key or None).  a is
-    drawn uniform in the range, b standard normal."""
+    drawn uniform in the range, b standard normal.  Every kernel must
+    give the plain loop's bits; where the wrapper takes the TMA pipeline
+    the SIMT kernel (the one any W takes) is timed beside it."""
     import torch
     from repro_torch.kernels.rglru_scan import ops as scan
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -388,7 +461,10 @@ def check_scan(cases, gen, dev, log):
         a = (lo + (hi - lo) * torch.rand(B, S, W, generator=gen,
                                          device=dev)).to(dt)
         b = torch.randn(B, S, W, generator=gen, device=dev).to(dt)
+        kern = scan.variant(W, dt)
+        others = ("simt",) if kern == "tma" else ()
         got = scan.rglru_scan(a, b)
+        other_out = {k: scan.launch(a, b, k) for k in others}
         want = scan.rglru_scan_plain(a, b)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
@@ -398,8 +474,8 @@ def check_scan(cases, gen, dev, log):
         b_ms, b_by = bound_ms(2.0 * B * S * W,
                               3 * B * S * W * a.element_size(), "float32")
         row = {"kernel": "rglru_scan", "key": key, "B": B, "S": S, "W": W,
-               "a_range": [lo, hi], "dtype": dtype_name, "max_abs_err": err,
-               "max_abs_plain": scale, "tol": tol,
+               "a_range": [lo, hi], "dtype": dtype_name, "variant": kern,
+               "max_abs_err": err, "max_abs_plain": scale, "tol": tol,
                "bitwise_equal": bool(torch.equal(got, want)),
                "ms": time_ms(lambda: scan.rglru_scan(a, b)),
                # a Python loop of S steps: a few launches each
@@ -408,10 +484,25 @@ def check_scan(cases, gen, dev, log):
                # no single PyTorch call computes a linear recurrence
                "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by}
+        for k, out in other_out.items():
+            row[f"ms_{k}"] = time_ms(lambda: scan.launch(a, b, k))
+            row[f"bitwise_equal_{k}"] = bool(torch.equal(out, want))
         log(row)
-        require(err <= tol, f"rglru_scan {(B, S, W)} a in [{lo}, {hi}) "
-                            f"{dtype_name}: err {err} > tol {tol}")
+        what = f"rglru_scan {(B, S, W)} a in [{lo}, {hi}) {dtype_name}"
+        require(err <= tol, f"{what}: err {err} > tol {tol}")
+        require(row["bitwise_equal"] and all(
+            row[f"bitwise_equal_{k}"] for k in others),
+            f"{what}: a kernel differs from the plain loop's bits")
         worst[dtype_name] = max(worst[dtype_name], err)
+    # rows arrive by TMA: a base off 16 bytes is refused, not rerouted
+    a = torch.rand(2 * 64 * 512 + 1, generator=gen, device=dev)[1:].view(
+        2, 64, 512)
+    try:
+        scan.rglru_scan(a, a)
+    except ValueError:
+        pass
+    else:
+        raise Failed("rglru_scan launched on a misaligned a")
     return worst
 
 
@@ -674,12 +765,16 @@ def train_phase(cfg, dev, counters, zero_counters):
         ends.append(len(trainer.step_seconds))
         if r == 1:
             omega_l2 = counters["group_l2_norms"].launches
+            omega_l2_bwd = counters["group_l2_norms"].bwd_launches
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     tally = {k: dict(fn.shapes) for k, fn in counters.items()}
     tally["block_masked_matmul_dx"] = dict(bmm.dx_shapes)
+    gl2 = counters["group_l2_norms"]
+    tally["group_l2_norms_bwd"] = dict(gl2.bwd_shapes)
     steps = np.asarray(trainer.step_seconds)
+    sparse_steps = ends[1]               # round 1 is the sparse round
     # the first step pays one-off start-up costs; the rates are taken
     # over the steps after it
     steady = steps[1:]
@@ -705,6 +800,7 @@ def train_phase(cfg, dev, counters, zero_counters):
          peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
          launches=launches, matmul_fwd=launches["block_masked_matmul"] - dx,
          matmul_dx=dx, attention_hd=hds, group_l2_in_round1=omega_l2,
+         group_l2_bwd=gl2.bwd_launches, sparse_steps=sparse_steps,
          prune_report_kept=sum(k for k, _ in
                                trainer.prune_report.values()))
     require(len(hist) == 3 and len(steps) == 24,
@@ -719,8 +815,17 @@ def train_phase(cfg, dev, counters, zero_counters):
             f"train: matmul forward/dx launches {launches} / {dx}")
     require(256 in hds and 144 in hds,
             f"train: attention head dims {hds}, want 256 and 144")
-    require(omega_l2 > 0, "train: no group-L2 launch inside Omega in "
-                          "round 1")
+    # one group-L2 launch an Omega evaluation (forward and backward),
+    # and one for the scores at R_s
+    require(omega_l2 == sparse_steps and omega_l2_bwd == sparse_steps,
+            f"train: {omega_l2} group-L2 launches and {omega_l2_bwd} "
+            f"backward launches in round 1, want one each a step "
+            f"({sparse_steps})")
+    require(launches["group_l2_norms"] == sparse_steps + 1
+            and gl2.bwd_launches == sparse_steps,
+            f"train: {launches['group_l2_norms']} group-L2 launches and "
+            f"{gl2.bwd_launches} backward, want {sparse_steps + 1} and "
+            f"{sparse_steps}")
     require(all(sum(t.values()) == launches[k] for k, t in tally.items()
                 if k in launches),
             f"train: per-shape tallies do not add up to {launches}")
@@ -732,8 +837,9 @@ PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",
                                                 "splitk_sum_kernel")),
                       ("flash_attention", ("flash_simt_kernel",
                                            "flash_tc_kernel")),
-                      ("group_l2_norms", ("col_partials", "group_sums")),
-                      ("rglru_scan", ("rglru_scan_kernel",)),
+                      ("group_l2_norms", ("group_l2_partials",
+                                          "group_l2_sums", "group_l2_bwd")),
+                      ("rglru_scan", ("rglru_scan_tma", "rglru_scan_kernel")),
                       ("library_gemm", ("gemm", "gemv", "nvjet")))
 
 
@@ -967,6 +1073,8 @@ def run(out_dir: str, profile: bool = False) -> dict:
             fn.launches = 0
             fn.shapes.clear()
         bmm.block_masked_matmul.dx_shapes.clear()
+        gl2.group_l2_norms.bwd_launches = 0
+        gl2.group_l2_norms.bwd_shapes.clear()
 
     # -- 3. serving: the CLI, dense and at ratio 0.44 ------------------------
     tallies = {}                  # path -> kernel -> {shape key: launches}
@@ -1006,6 +1114,10 @@ def run(out_dir: str, profile: bool = False) -> dict:
                     f"{name}: a kernel was not launched: {launches}")
             require(not bmm.block_masked_matmul.dx_shapes,
                     f"{name}: serving launched a backward dx")
+            # the pruned run scores every group in one launch
+            require(launches["group_l2_norms"] == (1 if extra else 0),
+                    f"{name}: {launches['group_l2_norms']} group-L2 "
+                    f"launches, want {1 if extra else 0}")
 
     # -- 4. the U-Net kernels' main path: training ---------------------------
     tallies["train"] = train_phase(cfg, dev, counters, zero_counters)
@@ -1054,7 +1166,12 @@ def run(out_dir: str, profile: bool = False) -> dict:
                 row["launches"]["train_dx"] = \
                     tallies["train"]["block_masked_matmul_dx"].get(
                         row["key"], 0)
+            if row["kernel"] == "group_l2_norms":
+                row["launches"]["train_bwd"] = \
+                    tallies["train"]["group_l2_norms_bwd"].get(row["key"], 0)
         rows.append(row)
+        if row["kernel"] == "group_l2_norms":   # the signature is the table
+            row = {**row, "key": row["signature"] if row["key"] else None}
         case_log.write(json.dumps(row) + "\n")
 
     def other(dt):
@@ -1124,7 +1241,8 @@ def run(out_dir: str, profile: bool = False) -> dict:
 
         l2_keys = launched("group_l2_norms")
         l2_err = check_group_l2(l2_keys, gen, dev, log)
-        emit("kernels", kernel="group_l2_norms", launched_shapes=len(l2_keys),
+        emit("kernels", kernel="group_l2_norms",
+             launched_signatures=[signature_name(k) for k in l2_keys],
              max_abs_err=l2_err, tol_rel=TOL["float32"])
 
         scan_keys = launched("rglru_scan")
@@ -1194,6 +1312,10 @@ def run(out_dir: str, profile: bool = False) -> dict:
             f = path_totals(rows, {k: n for k, n in fwd.items() if n})
             d = path_totals(rows, dx, role="dx")
             paths["train"] = {**add_totals(f, d), "fwd": f, "dx": d}
+        extra = {}
+        if name == "group_l2_norms":
+            extra["backward"] = path_totals(
+                rows, tallies["train"]["group_l2_norms_bwd"], role="bwd")
         main = paths[MAIN_PATHS[name]]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name],
@@ -1203,7 +1325,8 @@ def run(out_dir: str, profile: bool = False) -> dict:
                         "bound_by": main["bound_by"],
                         "bound_share": main["bound_share"],
                         "vs_library": main["vs_library"],
-                        "main_path": MAIN_PATHS[name], "paths": paths})
+                        "main_path": MAIN_PATHS[name], "paths": paths,
+                        **extra})
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "JAX or the JAX package was imported")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,43 +1,84 @@
 """Pruning criteria (``repro/core/pruning/criteria.py``): L2 group norm
 (paper §IV-A) and random (FedPhD-OS).
 
-Each group member's owned span is sliced, its group axis moved last and
-reshaped to ``(K, size*chunk)``: the layout the group sum-of-squares
-kernel reduces (:func:`repro_torch.models.ops.group_sq_norms_2d`).
+Every member of every group goes through one segmented group
+sum-of-squares launch (:func:`unit_sq_norms`, the kernel
+:mod:`repro_torch.kernels.group_l2_norms.ops`): its table of members is
+built once per group list and parameter shapes and dtypes, and only the
+tensors are gathered on each call (the parameters are new tensors after
+every Adam step).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.pruning.groups import GroupMember, PruneGroup, get_path
+from repro_torch.core.pruning.groups import PruneGroup, get_path
+from repro_torch.kernels.group_l2_norms import ops as gl2
 from repro_torch.models import ops
 
 
-def member_unit_sq(params, g: PruneGroup, m: GroupMember) -> torch.Tensor:
-    """(size,) float32 sum of squares per unit for one member."""
+def _check_unstacked(g: PruneGroup) -> None:
     if g.stacked:
         raise ValueError(f"group {g.name!r} is scan-stacked; the port's "
                          f"U-Net groups never are")
-    p = get_path(params, m.path)
-    sl = p.narrow(m.axis, m.offset, g.size * m.chunk)
-    w2d = torch.movedim(sl, m.axis, -1).reshape(-1, g.size * m.chunk)
-    return ops.group_sq_norms_2d(w2d, g.size)
 
 
-def group_sq_norms(params, g: PruneGroup) -> torch.Tensor:
-    """||theta^g[k]||_2^2 per unit k (Eq. 17 inner term)."""
-    out = None
-    for m in g.members:
-        s = member_unit_sq(params, g, m)
-        out = s if out is None else out + s
-    return out
+def _paths(groups: Sequence[PruneGroup]) -> Tuple[tuple, ...]:
+    """The groups' distinct member paths, in first-use order."""
+    for g in groups:
+        _check_unstacked(g)
+    return tuple(dict.fromkeys(m.path for g in groups
+                               for m in g.members))
+
+
+def _table(groups: Tuple[PruneGroup, ...], leaves) -> gl2.Table:
+    """The launch's table for ``groups`` over tensors of ``leaves``
+    ((shape, dtype) per path of :func:`_paths`)."""
+    index = {p: i for i, p in enumerate(_paths(groups))}
+    members, base = [], 0
+    for g in groups:
+        members += [gl2.Member(index[m.path], m.axis, m.offset, m.chunk,
+                               g.size, base) for m in g.members]
+        base += g.size
+    names = tuple((tuple(shape), str(dt).removeprefix("torch."))
+                  for shape, dt in leaves)
+    return gl2.table((names, tuple(members)))
+
+
+@functools.lru_cache(maxsize=16)
+def _layout(groups: Tuple[PruneGroup, ...]):
+    """(paths, {leaves: table}) of a group list, so that the groups, the
+    costly part of the key, are hashed once a call."""
+    return _paths(groups), {}
+
+
+def member_table(params, groups: Sequence[PruneGroup]
+                 ) -> Tuple[List[torch.Tensor], gl2.Table]:
+    """The tensors and the table of one launch over ``groups``."""
+    groups = tuple(groups)
+    paths, tables = _layout(groups)
+    tensors = [get_path(params, p) for p in paths]
+    leaves = tuple((t.shape, t.dtype) for t in tensors)
+    tab = tables.get(leaves)
+    if tab is None:
+        tab = tables[leaves] = _table(groups, leaves)
+    return tensors, tab
+
+
+def unit_sq_norms(params, groups: Sequence[PruneGroup]) -> torch.Tensor:
+    """(sum of sizes,) float32 ||theta^g[k]||_2^2 of every unit of every
+    group, the groups one after another; differentiable."""
+    return ops.segmented_sq_norms(*member_table(params, groups))
 
 
 def l2_scores(params, groups: List[PruneGroup]) -> Dict[str, torch.Tensor]:
     """Group-norm importance scores (sqrt of summed squares)."""
-    return {g.name: torch.sqrt(group_sq_norms(params, g)) for g in groups}
+    scores = torch.sqrt(unit_sq_norms(params, groups))
+    return dict(zip((g.name for g in groups),
+                    scores.split([g.size for g in groups])))
 
 
 def random_scores(generator: torch.Generator, groups: List[PruneGroup],

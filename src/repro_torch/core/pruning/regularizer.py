@@ -4,17 +4,20 @@ regularizer.py``; paper Eqs. 16-17).
 Omega(G, k) = sum_g lambda_g * sum_k ||theta^g[k]||_2^2 with the
 depth-aware scale lambda_g = lambda_0 / Q(theta^g), Q = |l - l_mid|:
 the U-Net's middle layers, the most redundant, get the largest pressure.
-The inner sums of squares run through the differentiable group
-sum-of-squares kernel (:func:`repro_torch.models.ops.group_sq_norms_2d`).
+The inner sums of squares of every group come from one launch of the
+differentiable segmented group sum-of-squares kernel
+(:func:`repro_torch.core.pruning.criteria.unit_sq_norms`), and Omega is
+their dot product with each unit's lambda_g.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.pruning.criteria import group_sq_norms
+from repro_torch.core.pruning.criteria import unit_sq_norms
 from repro_torch.core.pruning.groups import PruneGroup
 
 
@@ -32,12 +35,18 @@ def depth_lambdas(groups: List[PruneGroup],
     return out
 
 
+@functools.lru_cache(maxsize=16)
+def _unit_lambdas(lams: Tuple[float, ...], sizes: Tuple[int, ...],
+                  device: torch.device) -> torch.Tensor:
+    """lambda_g repeated over group g's units, on ``device`` once."""
+    return torch.from_numpy(np.repeat(np.asarray(lams, np.float32),
+                                      sizes)).to(device)
+
+
 def omega(params, groups: List[PruneGroup],
           lambdas: Dict[str, np.ndarray]) -> torch.Tensor:
     """The term a sparse round adds to the local loss (fp32 scalar)."""
-    total = None
-    for g in groups:
-        # lambda is float32 already: the product rounds as the reference's
-        term = float(lambdas[g.name][0]) * torch.sum(group_sq_norms(params, g))
-        total = term if total is None else total + term
-    return total
+    sq = unit_sq_norms(params, groups)
+    lam = _unit_lambdas(tuple(float(lambdas[g.name][0]) for g in groups),
+                        tuple(g.size for g in groups), sq.device)
+    return torch.dot(lam, sq)

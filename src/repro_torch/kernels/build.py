@@ -45,10 +45,13 @@ SIGNATURES = {
     # q, k, v, o, BH, Sq, Skv, hd, causal, window, bf16, kernel, vec, stream
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P],
-    # w, partial, out, K, N, G, stream
-    "group_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
-    # a, b, h, B, S, W, bf16, stream
-    "rglru_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # tensors, n_tensors, desc, members, items, groups, items2, partial,
+    # out, stream
+    "group_l2_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    # tensors, grads, n_tensors, desc, members, items, g, stream
+    "group_l2_bwd_launch": [_P, _P, _I, _P, _I, _I, _P, _P],
+    # a, b, h, B, S, W, bf16, kernel, stream
+    "rglru_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -40,6 +40,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "../../common/csrc/tma.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;
@@ -51,9 +53,6 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // The key-tile range [t_begin, t_end) that some query of [q0, q0 + bq) can reach.
@@ -323,39 +322,6 @@ struct Smem {  // every tile 1024-byte aligned, as the 128-byte swizzle needs
   uint64_t full_q, full[2];
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// a wait that has not completed after ~10 s of clocks traps (a launch error) instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - start > 20000000000LL) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(phase)
-        : "memory");
-  } while (!done);
-}
-// a (64, rows, 1) box at (col, row, bh) of a 3-D map into dst, completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                         int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(bh)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle: 8-row groups 1024 bytes apart (the only stride
 // these tiles use: K-major operands are one 64-column chunk wide, V's MN extent is one chunk)
 __device__ __forceinline__ uint64_t desc(const void* p) {
@@ -425,8 +391,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     mbar_expect_tx(&sm.full[st], KV_BYTES);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      tma_load(sm.k[st][c], mk, &sm.full[st], c * CHUNK, t * BKV, bh);
-      tma_load(sm.v[st][c], mv, &sm.full[st], c * CHUNK, t * BKV, bh);
+      tma_load_3d(sm.k[st][c], mk, &sm.full[st], c * CHUNK, t * BKV, bh);
+      tma_load_3d(sm.v[st][c], mv, &sm.full[st], c * CHUNK, t * BKV, bh);
     }
   };
   if (tid == 0) {
@@ -437,7 +403,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_expect_tx(&sm.full_q, NC * BQ * CHUNK * sizeof(bf16));
 #pragma unroll
-    for (int c = 0; c < NC; ++c) tma_load(sm.q[c], &tq, &sm.full_q, c * CHUNK, q0, bh);
+    for (int c = 0; c < NC; ++c) tma_load_3d(sm.q[c], &tq, &sm.full_q, c * CHUNK, q0, bh);
     if (t_begin < t_end) load_kv(t_begin, 0);
     if (t_begin + 1 < t_end) load_kv(t_begin + 1, 1);
   }
@@ -541,25 +507,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
           *dst = __float2bfloat16(a);
         }
       }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {  // libcuda's cuTensorMapEncodeTiled, looked up once (no -lcuda)
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    return res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
 }
 
 // (hd, S, BH) bf16, 128-byte swizzled boxes of (64, rows, 1); out-of-bounds reads are zeros

@@ -214,4 +214,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def group_sq_norms_2d(w2d: torch.Tensor, num_groups: int) -> torch.Tensor:
     """(K, G*C) -> (G,) fp32 per-group sums of squares over contiguous
     column chunks."""
-    return gl2.GroupSqNorms.apply(w2d.float().contiguous(), num_groups)
+    w = w2d.float().contiguous()
+    return segmented_sq_norms(
+        [w], gl2.single_table(w.shape, "float32", num_groups))
+
+
+def segmented_sq_norms(tensors, table) -> torch.Tensor:
+    """(units,) fp32 per-unit sums of squares of ``table``'s members of
+    ``tensors`` (:mod:`repro_torch.kernels.group_l2_norms.ops`), one
+    launch forward and one backward."""
+    return gl2.SegmentedSqNorms.apply(table, *tensors)

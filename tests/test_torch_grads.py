@@ -9,6 +9,11 @@ attention backward as a dense recompute, the group sum of squares as
 ``2 w g``.  The reference runs its ``xla`` route and, at one 128-aligned
 shape per op, its ``pallas`` route in interpret mode (its ``custom_vjp``
 backwards).  fp32 throughout; tolerances are stated per test.
+
+The segmented group sum of squares and Omega run on ``SMOKE_UNET`` with
+non-degenerate numpy-seeded weights against the reference's
+``group_sq_norms``, ``omega`` and its ``jax.grad`` (``ref`` backend, one
+small ``jit``).
 """
 import jax
 import jax.numpy as jnp
@@ -16,10 +21,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import SMOKE_UNET as JAX_SMOKE
+from repro.core.pruning import build_groups as jbuild_groups
+from repro.core.pruning import depth_lambdas as jdepth_lambdas
+from repro.core.pruning import group_sq_norms as jgroup_sq_norms
+from repro.core.pruning import omega as jomega
 from repro.models import ops as jops
+from repro.models.unet import init_unet as jinit_unet
+from repro_torch.configs import SMOKE_UNET
+from repro_torch.convert import params_from_jax
+from repro_torch.core.pruning import (depth_lambdas, member_table, omega,
+                                      unet_groups, unit_sq_norms)
 from repro_torch.kernels.block_masked_matmul import ops as bmm
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import ops
+from repro_torch.tree import tree_leaves
 
 ATOL = 1e-5
 
@@ -202,3 +218,77 @@ def test_group_sq_norms_grads_match_jax(K, G, C, backend):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(y),
                                rtol=1e-6)
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw), atol=1e-6)
+
+
+def _randomize(tree, r):
+    """Weights at 1/sqrt(fan_in), norm scales near 1, small biases."""
+    if isinstance(tree, dict):
+        return {k: _randomize(v, r) if isinstance(v, (dict, list))
+                else _leaf(k, v.shape, r) for k, v in tree.items()}
+    return [_randomize(v, r) for v in tree]
+
+
+def _leaf(name, shape, r):
+    z = r.standard_normal(shape).astype(np.float32)
+    if name == "w":
+        return z / np.float32(np.sqrt(np.prod(shape[:-1])))
+    return 1.0 + 0.1 * z if name == "scale" else 0.1 * z
+
+
+def _by_path(tree, prefix=""):
+    """{path: leaf} of a nested dict/list tree of either package."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _by_path(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _by_path(sub, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def test_segmented_sq_norms_and_omega_match_jax():
+    """Every member tensor covered whole; each group's sums within 1e-6
+    of that group's largest sum; Omega within 1e-6 of itself; every
+    leaf's gradient within 1e-6 of the largest gradient of any leaf."""
+    shapes = jax.eval_shape(lambda k: jinit_unet(k, JAX_SMOKE),
+                            jax.random.PRNGKey(0))
+    np_params = _randomize(shapes, np.random.default_rng(5))
+    jp = jax.tree.map(jnp.asarray, np_params)
+    jg = jbuild_groups(JAX_SMOKE, jp)
+    jl = jdepth_lambdas(jg, 1e-3)
+
+    def reference(p):
+        sq = [jgroup_sq_norms(p, g, backend="ref") for g in jg]
+        value, grad = jax.value_and_grad(
+            lambda q: jomega(q, jg, jl, backend="ref"))(p)
+        return sq, value, grad
+
+    want_sq, want, jgrad = jax.jit(reference)(jp)
+
+    tp = params_from_jax(np_params, torch.device("cpu"))
+    tg = unet_groups(SMOKE_UNET, tp)
+    assert [g.name for g in tg] == [g.name for g in jg]
+    for v in tree_leaves(tp):
+        v.requires_grad_()
+    tensors, tab = member_table(tp, tg)
+    # every member tensor is owned whole, so its gradient needs no zeros
+    assert len(tab.covered) == len(tensors) and all(tab.covered)
+    sq = unit_sq_norms(tp, tg).detach().numpy()
+    assert sq.shape == (sum(g.size for g in tg),)
+    for g, (base, size, _, _), ref in zip(tg, tab.groups, want_sq):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(sq[base:base + size], ref, rtol=0,
+                                   atol=1e-6 * np.abs(ref).max(),
+                                   err_msg=g.name)
+    got = omega(tp, tg, depth_lambdas(tg, 1e-3))
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    jg_by = {k: np.asarray(v) for k, v in _by_path(jgrad).items()}
+    scale = max(np.abs(v).max() for v in jg_by.values())
+    tp_by = _by_path(tp)
+    assert tp_by.keys() == jg_by.keys()
+    for k, leaf in tp_by.items():
+        g = np.zeros(leaf.shape, np.float32) if leaf.grad is None \
+            else leaf.grad.numpy()
+        np.testing.assert_allclose(g, jg_by[k], rtol=0, atol=1e-6 * scale,
+                                   err_msg=k)

@@ -177,7 +177,9 @@ def test_build_sources_and_library_key(tmp_path):
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path == build.library_path()
     assert set(build.SIGNATURES) >= {"bmm_launch", "flash_attn_launch",
-                                     "group_l2_launch", "rglru_scan_launch"}
+                                     "group_l2_fwd_launch",
+                                     "group_l2_bwd_launch",
+                                     "rglru_scan_launch"}
     # the key covers every file under each csrc/ (an edited header
     # rebuilds) and the flags (an added include path or link library)
     csrc = tmp_path / "kern" / "csrc"
