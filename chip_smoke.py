@@ -21,11 +21,28 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             per client over 4 clients, batch 32, 2 edges, 3 rounds
             (R_s = 2): round 1 sparse (Omega), round 2 plain on the dense
             model and pruned at 0.44 at its cloud aggregation, round 3
-            on the compacted model; 24 local steps.  The data scale, the
-            client count and the rounds are cut; widths and depth are not.
-            The first step's time is given on its own; the step p50/p99
-            and images/s are over the 23 steps after it, and a p50 is
-            given for each round;
+            on the compacted model; 24 local client steps.  The data
+            scale, the client count and the rounds are cut; widths and
+            depth are not.  It trains on each engine, three runs a side
+            in turns (sequential, vectorized, ...), fresh clients from
+            the same seeds each run: the first pair here, the other two
+            after phase 8, so that the kernels are timed after the same
+            work as before the vectorized engine existed.  The first
+            sequential run keeps the
+            sequential engine's checks and summary (the first step's
+            time on its own; step p50/p99 and images/s over the 23
+            steps after it; a p50 for each round).  The first
+            vectorized run (6 batched steps of the 4 clients) must match
+            it: the same selections, bitwise bytes, params_m and prune
+            report, each round's loss within TRAIN_LOSS_RTOL, the final
+            params within TRAIN_PARAMS_ATOL with TRAIN_PARAMS_BULK of
+            them within 1e-5, and launch exactly VECTORIZED_LAUNCHES,
+            every matmul over the 4 clients.  Each engine's local
+            seconds a round (host clock ending in the round's loss
+            syncs), images/s, peak memory and launches a step are given
+            as medians over its runs.  After those runs, the vectorized
+            engine's peak memory for one sparse step at C = 4, 8, 10, 12,
+            16, 20 clients, up to the first C that does not fit;
 5. lm_prefill  the full 38-layer recurrentgemma-9b in bf16 with random
             weights from the port's init, ``build_prefill_step`` on
             B = 2, S = 4096 token ids from a numpy seed: one warm-up and
@@ -54,7 +71,11 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             and must give the same bits.  Group-L2 is checked per launched
             member signature (the whole table of a launch), in its dtype
             and in bf16: forward within tolerance, a repeat bitwise equal,
-            the backward bitwise equal to 2 w g.  The scan must equal its
+            the backward bitwise equal to 2 w g.  Client-axis launches
+            (the vectorized run's: C products, C copies of a member
+            table) are checked the same way and also against C
+            one-client launches, bitwise where the matmul's plan cuts
+            both alike and always for group-L2.  The scan must equal its
             plain loop bitwise in every case; on TMA-addressable rows its
             SIMT kernel is timed and checked beside it;
 9. forward  one full-width U-Net forward through the kernels against the
@@ -66,20 +87,26 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             CPU copies: the dense model with Omega, as in a sparse round,
             and the compacted model.  Every leaf is held to GRAD_TOL of
             the largest plain gradient, and every leaf of at least
-            GRAD_LEAF_FLOOR of it also to GRAD_LEAF_TOL of its own;
-11. profile only with ``--profile``: the training run once more, and
-            after lm_serve one more prefill and 8 decode steps, each under
-            ``torch.profiler``: device time by kernel and category and
-            the device's idle share, the traces for work on the step's
-            speed (the training profile's post-processing adds ~4 min).
+            GRAD_LEAF_FLOOR of it also to GRAD_LEAF_TOL of its own.
+            Then one stacked loss and gradient of 4 clients (client-axis
+            launches), with and without Omega, against each client's own
+            through one-client launches, within GRAD_TOL of the largest
+            gradient;
+11. profile only with ``--profile``: one more training run on each engine,
+            and after lm_serve one more prefill and 8 decode steps, each
+            under ``torch.profiler``: device time by kernel and category,
+            the device's idle share and kernels a step, the traces for
+            work on the step's speed (the sequential training profile's
+            post-processing adds ~4 min).
 
 Every kernel's counters (``.launches``, the per-shape ``.shapes``, the
 matmul's ``.dx_shapes`` and group-L2's ``.bwd_launches`` and
-``.bwd_shapes``) are set to 0 just before each serving run, the training
-run and each LM run, and read just after it.  Group-L2 launches once per
-Omega evaluation and once per pruning score: the training run must
-launch it once a sparse step plus once at R_s, the 0.44 serving run
-once.
+``.bwd_shapes``) are set to 0 just before each serving run, each
+training run and each LM run, and read just after it.  Group-L2 launches
+once per Omega evaluation and once per pruning score: the sequential
+training run must launch it once a sparse step plus once at R_s, the
+vectorized one once a batched sparse step plus once at R_s, the 0.44
+serving run once.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  In the kernels line each kernel's
@@ -90,9 +117,11 @@ for the three U-Net kernels and the LM prefill for the scan:
 shape's time (count x time per launch; ``library_ms`` is null where no
 PyTorch call computes the function), ``bound_share`` is bound_ms / ms
 and ``vs_library`` ms / library_ms.  ``paths`` gives the same for every
-run, the matmul's training launches also split into forward and dx;
-group-L2's entry is its forward launches, and ``backward`` gives its
-backward kernel's on the training run.
+run, among them ``train_vectorized`` (the first vectorized training
+run), the matmul's training launches also split into forward and dx;
+group-L2's entry is its forward launches, and ``backward`` (and
+``backward_train_vectorized``) gives its backward kernel's on the
+training runs.
 Any failure exits nonzero before the last line.
 """
 from __future__ import annotations
@@ -128,10 +157,32 @@ GRAD_LEAF_FLOOR = 1e-2
 LM_TOL = 1e-4
 SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
 LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency")
-PATHS = ("dense", "pruned", "train") + LM_PATHS
+TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
+PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
               "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
 TRAIN_BATCH = 32
+TRAIN_CLIENTS = 4
+TRAIN_LR = 2e-4
+TRAIN_ENGINES = ("sequential", "vectorized")
+# runs a side, the engines in turns: host time drifts 1.3-1.6x in a call
+TRAIN_PAIRS = 3
+# vectorized against sequential (the same draws, other summation orders):
+# each round's loss relative; params within 6 local steps x 2 lr (Adam
+# moves a parameter whose exact gradient is zero by up to lr a step), and
+# this share of them within 1e-5 (tests/test_torch_train.py's form)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAMS_ATOL = 6 * 2 * TRAIN_LR
+TRAIN_PARAMS_BULK = (1e-5, 0.995)
+# the vectorized run's launches: 6 batched steps (2 a round) of the
+# sequential run's 200 matmul and 6 attention launches a client step;
+# group-L2 once a sparse step (2) plus the scores at R_s, backward 2
+VECTORIZED_LAUNCHES = {"block_masked_matmul": 1200, "flash_attention": 36,
+                       "group_l2_norms": 3, "group_l2_norms_bwd": 2}
+# the vectorized engine's peak memory at these client counts (20 is
+# FLConfig's default population at participation 1.0), until one fails
+MEMORY_CLIENTS = (4, 8, 10, 12, 16, 20)
+GRAD_CLIENTS = 4
 GRAD_BATCH = 4
 LM_ARCH = "recurrentgemma-9b"
 LM_BATCH, LM_SEQ, LM_TIMED = 2, 4096, 3
@@ -227,20 +278,23 @@ def to_device(tree, device):
 # ---------------------------------------------------------------------------
 
 def check_matmul(cases, gen, dev, log):
-    """cases: ((M, K, N), ratio or None, dtype, tally key or None, role).
-    A "dx" case runs as the backward launches it: B = w.T read in place
-    from a row-major w (N, K).  A launch that splits K runs twice and
-    must give the same bits."""
+    """cases: ((M, K, N), ratio or None, dtype, tally key or None, role,
+    clients or None).  A "dx" case runs as the backward launches it:
+    B = w.T read in place from a row-major w (N, K).  A launch that
+    splits K runs twice and must give the same bits.  A client-axis case
+    (C products in one launch) must also give the bits of C one-client
+    launches wherever the plan cuts both alike."""
     import torch
     from repro_torch.kernels.block_masked_matmul import ops as bmm
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for (M, K, N), ratio, dtype_name, key, role in cases:
+    for (M, K, N), ratio, dtype_name, key, role, C in cases:
         dt = getattr(torch, dtype_name)
         dx = role == "dx"
-        x = torch.randn(M, K, generator=gen, device=dev).to(dt)
-        w = (torch.randn(*((N, K) if dx else (K, N)), generator=gen,
+        lead = () if C is None else (C,)
+        x = torch.randn(lead + (M, K), generator=gen, device=dev).to(dt)
+        w = (torch.randn(lead + ((N, K) if dx else (K, N)), generator=gen,
                          device=dev) / K ** 0.5).to(dt)
-        b = w.t() if dx else w           # the B operand, (K, N)
+        b = w.transpose(-1, -2) if dx else w     # the B operand, (K, N)
         cm = rm = None
         if ratio is not None:
             cm = (torch.rand(N, generator=gen, device=dev) >= ratio).float()
@@ -250,9 +304,13 @@ def check_matmul(cases, gen, dev, log):
         def kernel():
             return bmm.block_masked_matmul(x, w, cm, rm, trans_b=dx)
         got = kernel()
-        plan = bmm.plan(M, K, N)
+        plan = bmm.plan(M, K, N, C or 1)
         again = kernel() if plan.splits > 1 else got
         want = bmm.block_masked_matmul_plain(x, b, cm, rm)
+        same_plan = C is not None and plan == bmm.plan(M, K, N)
+        per_client = torch.stack([
+            bmm.block_masked_matmul(x[c], w[c], cm, rm, trans_b=dx)
+            for c in range(C)]) if same_plan else None
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         scale = max(1.0, float(want.float().abs().max()))
@@ -262,25 +320,31 @@ def check_matmul(cases, gen, dev, log):
         kk = K if rm is None else int(rm.sum())
         nn = N if cm is None else int(cm.sum())
         elt = x.element_size()
-        nbytes = (M * K + K * N + M * N) * elt \
+        nbytes = (C or 1) * (M * K + K * N + M * N) * elt \
             + (0 if ratio is None else 4 * (K + N))
-        b_ms, b_by = bound_ms(2.0 * M * kk * nn, nbytes, dtype_name)
+        b_ms, b_by = bound_ms(2.0 * (C or 1) * M * kk * nn, nbytes,
+                              dtype_name)
         row = {"kernel": "block_masked_matmul", "key": key, "role": role,
-               "M": M, "K": K, "N": N, "ratio": ratio, "dtype": dtype_name,
-               "plan": plan._asdict(), "max_abs_err": err, "tol": tol,
+               "C": C, "M": M, "K": K, "N": N, "ratio": ratio,
+               "dtype": dtype_name, "plan": plan._asdict(),
+               "max_abs_err": err, "tol": tol,
                "bitwise_repeat": bool(torch.equal(got, again)),
+               "bitwise_per_client": None if per_client is None
+               else bool(torch.equal(got, per_client)),
                "ms": time_ms(kernel),
                "plain_ms": time_ms(
                    lambda: bmm.block_masked_matmul_plain(x, b, cm, rm)),
                "library_ms": time_ms(lambda: torch.matmul(x, wmask)),
                "bound_ms": b_ms, "bound_by": b_by}
         log(row)
-        require(err <= tol, f"block_masked_matmul {M}x{K}x{N} {role} "
-                            f"{dtype_name} ratio={ratio}: err {err} > tol "
-                            f"{tol}")
-        require(row["bitwise_repeat"], f"block_masked_matmul {M}x{K}x{N} "
-                                       f"split {plan.splits} ways differs "
-                                       f"between two launches")
+        what = f"block_masked_matmul {lead + (M, K, N)} {role} " \
+               f"{dtype_name} ratio={ratio}"
+        require(err <= tol, f"{what}: err {err} > tol {tol}")
+        require(row["bitwise_repeat"], f"{what}: split {plan.splits} ways "
+                                       f"differs between two launches")
+        require(row["bitwise_per_client"] is not False,
+                f"{what}: differs from {C} one-client launches of the "
+                f"same plan")
         worst[dtype_name] = max(worst[dtype_name], err)
     # a fully masked N-block writes exact zeros (tests/test_kernels.py:38)
     x = torch.randn(128, 128, generator=gen, device=dev)
@@ -357,46 +421,66 @@ def check_attention(cases, gen, dev, log):
     return worst
 
 
-def signature_name(sig) -> str:
-    """A group-L2 signature in a few words, for the case log."""
+def signature_name(key) -> str:
+    """A group-L2 tally key (a signature, with C for a client axis) in a
+    few words, for the case log."""
     import hashlib
-    shapes, members = sig
+    shapes, members = key[:2]
     dts = sorted({dt for _, dt in shapes})
+    clients = f", {key[2]} clients" if len(key) > 2 else ""
     return (f"{len(members)} members of {len(shapes)} tensors, "
-            f"{'/'.join(dts)}, {hashlib.sha1(repr(sig).encode()).hexdigest()[:10]}")
+            f"{'/'.join(dts)}{clients}, "
+            f"{hashlib.sha1(repr(key).encode()).hexdigest()[:10]}")
 
 
-def check_group_l2(signatures, gen, dev, log):
-    """signatures: the launched tally keys (a launch's whole member
-    table).  Each runs on random tensors of its shapes, in its dtype, and
-    the first also in bf16: the forward against the plain version within
-    TOL["float32"] x max (fp32 sums on both sides), a repeat bitwise
-    equal, the backward bitwise equal to the plain 2 w g.  ``library_ms``
+def check_group_l2(keys, gen, dev, log):
+    """keys: the launched tally keys (a launch's whole member table, and
+    C for a client-axis table).  Each runs on random tensors of its
+    shapes, in its dtype, and the first also in bf16: the forward
+    against the plain version within TOL["float32"] x max (fp32 sums on
+    both sides), a repeat bitwise equal, the backward bitwise equal to
+    the plain 2 w g; a client-axis table also bitwise against one
+    one-client launch per client, forward and backward.  ``library_ms``
     is the loop of one ``einsum`` a member that a PyTorch user would
     write; the bound reads every member element once."""
     import torch
     from repro_torch.kernels.group_l2_norms import ops as gl2
     worst = 0.0
-    cases = [(sig, sig) for sig in signatures]
-    if signatures:
-        shapes, members = signatures[0]
+    cases = [(k, k) for k in keys]
+    if keys:
+        shapes, members = keys[0][:2]
         cases.append(((tuple((sh, "bfloat16") for sh, _ in shapes),
                        members), None))
     for sig, key in cases:
-        tab = gl2.table(sig)
-        tensors = [torch.randn(shape, generator=gen, device=dev).to(
+        C = sig[2] if len(sig) > 2 else None
+        tab = gl2.table(sig[:2], clients=C)
+        lead = () if C is None else (C,)
+        tensors = [torch.randn(lead + shape, generator=gen, device=dev).to(
             getattr(torch, dt)) for shape, dt in sig[0]]
-        g = torch.randn(tab.units, generator=gen, device=dev)
+        g = torch.randn(tab.out_units, generator=gen, device=dev)
         got = gl2.segmented_sq_norms(tensors, tab)
         again = gl2.segmented_sq_norms(tensors, tab)
         want = gl2.segmented_sq_norms_plain(tensors, tab)
         dw = gl2.segmented_sq_norms_backward(tensors, tab, g)
         dw_want = gl2.segmented_sq_norms_backward_plain(tensors, tab, g)
+        per_client = None
+        if C is not None:                # one-client launches, client by client
+            one, u = gl2.table(sig[:2]), tab.units
+            slices = [[t[c] for t in tensors] for c in range(C)]
+            fwd = torch.cat([gl2.segmented_sq_norms(sl, one)
+                             for sl in slices])
+            bwd = [gl2.segmented_sq_norms_backward(sl, one,
+                                                   g[c * u:(c + 1) * u])
+                   for c, sl in enumerate(slices)]
+            per_client = bool(torch.equal(got, fwd)) and all(
+                torch.equal(d[c], bwd[c][i]) for i, d in enumerate(dw)
+                for c in range(C))
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         tol = TOL["float32"] * float(want.abs().max())
-        views = [(t.reshape(v).narrow(1, m.offset, m.size * m.chunk)
-                  .unflatten(1, (m.size, m.chunk)))
+        views = [(t.reshape(lead + v).narrow(len(lead) + 1, m.offset,
+                                              m.size * m.chunk)
+                  .unflatten(len(lead) + 1, (m.size, m.chunk)))
                  for m, v in zip(tab.members, tab.views)
                  for t in (tensors[m.tensor],)]
 
@@ -406,7 +490,7 @@ def check_group_l2(signatures, gen, dev, log):
                 acc = None
                 for v in views[m0:m1]:
                     vf = v.float()
-                    s = torch.einsum("okci,okci->k", vf, vf)
+                    s = torch.einsum("...okci,...okci->...k", vf, vf)
                     acc = s if acc is None else acc + s
                 out.append(acc)
             return out
@@ -417,20 +501,22 @@ def check_group_l2(signatures, gen, dev, log):
                      for t, c in zip(tensors, tab.covered) if not c)
         dtypes = "/".join(sorted({dt for _, dt in sig[0]}))
         common = {"kernel": "group_l2_norms", "key": key,
-                  "signature": signature_name(sig),
+                  "signature": signature_name(sig), "clients": C,
                   "members": len(tab.members), "tensors": len(tensors),
-                  "units": tab.units, "work_items": tab.counts[1],
+                  "units": tab.out_units, "work_items": tab.counts[1],
                   "dtype": dtypes}
-        b_ms, b_by = bound_ms(2.0 * elems, nbytes + 4 * tab.units, "float32")
+        b_ms, b_by = bound_ms(2.0 * elems, nbytes + 4 * tab.out_units,
+                              "float32")
         row = {**common, "role": "fwd", "max_abs_err": err, "tol": tol,
                "bitwise_repeat": bool(torch.equal(got, again)),
+               "bitwise_per_client": per_client,
                "ms": time_ms(lambda: gl2.segmented_sq_norms(tensors, tab)),
                "plain_ms": time_ms(
                    lambda: gl2.segmented_sq_norms_plain(tensors, tab)),
                "library_ms": time_ms(library),
                "bound_ms": b_ms, "bound_by": b_by}
         log(row)
-        b_ms, b_by = bound_ms(2.0 * elems, 2 * nbytes + 4 * tab.units
+        b_ms, b_by = bound_ms(2.0 * elems, 2 * nbytes + 4 * tab.out_units
                               + zeroed, "float32")
         bwd_equal = all(torch.equal(x, y) for x, y in zip(dw, dw_want))
         log({**common, "role": "bwd", "bitwise_equal": bwd_equal,
@@ -444,6 +530,8 @@ def check_group_l2(signatures, gen, dev, log):
         require(err <= tol, f"{what}: err {err} > {tol}")
         require(row["bitwise_repeat"], f"{what}: two runs differ")
         require(bwd_equal, f"{what}: the backward differs from 2 w g")
+        require(per_client is not False,
+                f"{what}: differs from one-client launches on each slice")
         worst = max(worst, err)
     return worst
 
@@ -724,10 +812,11 @@ def lm_consistency_phase(cfg, dev, counters, zero_counters):
 # phase 4: training
 # ---------------------------------------------------------------------------
 
-def make_trainer(cfg, dev):
-    """The port's FedPhD on 320 synthetic CIFAR-10-like images: 4
-    clients holding 2 classes each, batch 32, 2 edges, 3 rounds with
-    R_s = 2 (round 1 sparse, the prune at round 2's cloud aggregation)."""
+def make_trainer(cfg, dev, engine):
+    """The port's FedPhD on ``engine`` over 320 synthetic CIFAR-10-like
+    images: 4 clients holding 2 classes each, batch 32, 2 edges, 3
+    rounds with R_s = 2 (round 1 sparse, the prune at round 2's cloud
+    aggregation).  Each call builds fresh clients from the same seeds."""
     from repro_torch.configs import FLConfig
     from repro_torch.core.hfl import FedPhD
     from repro_torch.data import (CIFAR10_LIKE, ClientData, make_dataset,
@@ -736,59 +825,99 @@ def make_trainer(cfg, dev):
 
     ds = dataclasses.replace(CIFAR10_LIKE, samples_per_class=32)
     images, labels = make_dataset(ds, seed=0)
-    parts = shards_per_client(labels, 4, 2, seed=0)
+    parts = shards_per_client(labels, TRAIN_CLIENTS, 2, seed=0)
     # wired as the reference's experiment/data.py:make_clients wires them
     clients = [Client(i, ClientData(images[p], labels[p],
                                     batch_size=TRAIN_BATCH, seed=i),
                       ds.num_classes) for i, p in enumerate(parts)]
-    fl = FLConfig(num_clients=4, num_edges=2, participation=1.0,
+    fl = FLConfig(num_clients=TRAIN_CLIENTS, num_edges=2, participation=1.0,
                   local_epochs=1, edge_agg_every=1, cloud_agg_every=1,
                   rounds=3, sparse_rounds=2, prune_ratio=0.44)
-    return FedPhD(cfg.replace(precision="fp32"), fl, clients, device=dev)
+    return FedPhD(cfg.replace(precision="fp32"), fl, clients, device=dev,
+                  lr=TRAIN_LR, engine=engine)
 
 
-def train_phase(cfg, dev, counters, zero_counters):
-    """Full-width FedPhD through sparse -> prune -> plain; returns the
-    run's tallies: kernel -> {shape key: launches}, plus the matmul's
-    dx launches under "block_masked_matmul_dx"."""
-    import numpy as np
+def train_run(cfg, dev, engine, counters, zero_counters):
+    """One training run on ``engine``, the counters set to 0 just before
+    it and read just after: the trainer, its history, its kernel tallies
+    (kernel -> {shape key: launches}, with the matmul's dx launches under
+    "block_masked_matmul_dx" and group-L2's backward under
+    "group_l2_norms_bwd"), the group-L2 launches of round 1, each
+    round's local-training seconds (host clock, each ending in the
+    round's loss syncs: the sequential engine's step_seconds summed over
+    the round, the vectorized engine's round_seconds), the client steps
+    of each round and the peak device memory."""
     import torch
 
-    trainer = make_trainer(cfg, dev)
-    bmm = counters["block_masked_matmul"]
+    trainer = make_trainer(cfg, dev, engine)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
     t0 = time.perf_counter()
-    ends = [0]                           # step count at each round's end
+    ends = [0]                           # client steps at each round's end
+    batched = []                         # the round's steps of all clients
     for r in (1, 2, 3):                  # sparse; plain, pruned; compacted
         hist, _ = trainer.run(r)
-        ends.append(len(trainer.step_seconds))
+        steps = [trainer.clients[c].data.steps_per_epoch
+                 for c in hist[-1].selected]
+        ends.append(ends[-1] + sum(steps))
+        batched.append(max(steps) if engine == "vectorized" else sum(steps))
         if r == 1:
-            omega_l2 = counters["group_l2_norms"].launches
-            omega_l2_bwd = counters["group_l2_norms"].bwd_launches
+            gl2 = counters["group_l2_norms"]
+            omega = (gl2.launches, gl2.bwd_launches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
     tally = {k: dict(fn.shapes) for k, fn in counters.items()}
-    tally["block_masked_matmul_dx"] = dict(bmm.dx_shapes)
-    gl2 = counters["group_l2_norms"]
-    tally["group_l2_norms_bwd"] = dict(gl2.bwd_shapes)
+    tally["block_masked_matmul_dx"] = dict(
+        counters["block_masked_matmul"].dx_shapes)
+    tally["group_l2_norms_bwd"] = dict(counters["group_l2_norms"].bwd_shapes)
+    if engine == "sequential":
+        st = trainer.step_seconds
+        round_s = [sum(st[a:b]) for a, b in zip(ends, ends[1:])]
+    else:
+        round_s = list(trainer.round_seconds)
+    return dict(trainer=trainer, hist=hist, wall=wall, tally=tally,
+                launches={k: fn.launches for k, fn in counters.items()},
+                gl2_bwd=counters["group_l2_norms"].bwd_launches,
+                omega=omega, round_s=round_s,
+                steps=[b - a for a, b in zip(ends, ends[1:])],
+                batched_steps=sum(batched),
+                peak=torch.cuda.max_memory_allocated(dev))
+
+
+def train_phase(cfg, dev, counters, zero_counters):
+    """Full-width FedPhD through sparse -> prune -> plain, one run on
+    each engine (sequential, then vectorized), and every check on that
+    pair; the sequential run's checks are those of the sequential-only
+    phase before the vectorized engine existed.  Returns the pair's
+    tallies, {"train": sequential, "train_vectorized": ...}, and its
+    runs (engine -> [run]) for :func:`train_timing_phase`."""
+    import numpy as np
+
+    runs = {e: [train_run(cfg, dev, e, counters, zero_counters)]
+            for e in TRAIN_ENGINES}
+    seq, vec = runs["sequential"][0], runs["vectorized"][0]
+    trainer, hist, launches = seq["trainer"], seq["hist"], seq["launches"]
+    tally = seq["tally"]
     steps = np.asarray(trainer.step_seconds)
-    sparse_steps = ends[1]               # round 1 is the sparse round
+    sparse_steps = seq["steps"][0]       # round 1 is the sparse round
+    omega_l2, omega_l2_bwd = seq["omega"]
     # the first step pays one-off start-up costs; the rates are taken
     # over the steps after it
     steady = steps[1:]
     dx = sum(tally["block_masked_matmul_dx"].values())
     hds = sorted({key[3] for key in tally["flash_attention"]})
+    ends = np.cumsum([0] + seq["steps"])
     for rec in hist:
         emit("train", round=rec.round, loss=rec.loss, comm_gb=rec.comm_gb,
              comm_up_gb=rec.comm_up_gb, comm_down_gb=rec.comm_down_gb,
              params_m=rec.params_m, pruned=rec.pruned,
              selected=rec.selected)
-    emit("train", run="summary", model=cfg.name, precision="fp32",
+    emit("train", run="summary", engine="sequential", model=cfg.name,
+         precision="fp32",
          cut="data 320 images (32 per class), 4 clients, 3 rounds; "
              "full width and depth",
-         steps=len(steps), batch=TRAIN_BATCH, wall_s=wall,
+         steps=len(steps), batch=TRAIN_BATCH, wall_s=seq["wall"],
          first_step_ms=float(steps[0] * 1e3), steady_steps=len(steady),
          p50_step_ms=float(np.percentile(steady, 50) * 1e3),
          p99_step_ms=float(np.percentile(steady, 99) * 1e3),
@@ -797,10 +926,10 @@ def train_phase(cfg, dev, counters, zero_counters):
              float(np.percentile(steps[max(a, 1):b], 50) * 1e3)
              for a, b in zip(ends, ends[1:])],
          step_ms=[float(x * 1e3) for x in steps],
-         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+         peak_mem_bytes=seq["peak"],
          launches=launches, matmul_fwd=launches["block_masked_matmul"] - dx,
          matmul_dx=dx, attention_hd=hds, group_l2_in_round1=omega_l2,
-         group_l2_bwd=gl2.bwd_launches, sparse_steps=sparse_steps,
+         group_l2_bwd=seq["gl2_bwd"], sparse_steps=sparse_steps,
          prune_report_kept=sum(k for k, _ in
                                trainer.prune_report.values()))
     require(len(hist) == 3 and len(steps) == 24,
@@ -822,14 +951,170 @@ def train_phase(cfg, dev, counters, zero_counters):
             f"backward launches in round 1, want one each a step "
             f"({sparse_steps})")
     require(launches["group_l2_norms"] == sparse_steps + 1
-            and gl2.bwd_launches == sparse_steps,
+            and seq["gl2_bwd"] == sparse_steps,
             f"train: {launches['group_l2_norms']} group-L2 launches and "
-            f"{gl2.bwd_launches} backward, want {sparse_steps + 1} and "
+            f"{seq['gl2_bwd']} backward, want {sparse_steps + 1} and "
             f"{sparse_steps}")
     require(all(sum(t.values()) == launches[k] for k, t in tally.items()
                 if k in launches),
             f"train: per-shape tallies do not add up to {launches}")
-    return tally
+    check_vectorized(seq, vec)
+    for run in (seq, vec):
+        del run["trainer"]
+    return {"train": tally, "train_vectorized": vec["tally"]}, runs
+
+
+def train_timing_phase(cfg, dev, counters, zero_counters, runs):
+    """The engines side by side: TRAIN_PAIRS - 1 more runs a side in
+    turns after :func:`train_phase`'s pair (the host sets the step time
+    and drifts within a call), and each engine's times as medians over
+    all its runs.  These runs come after the kernel checks, so that the
+    kernels are timed after the same work as before the vectorized
+    engine existed."""
+    import numpy as np
+
+    for _ in range(TRAIN_PAIRS - 1):
+        for e in TRAIN_ENGINES:
+            run = train_run(cfg, dev, e, counters, zero_counters)
+            del run["trainer"]
+            runs[e].append(run)
+    seq = runs["sequential"][0]
+    per_engine = {}
+    for e in TRAIN_ENGINES:
+        rs = runs[e]
+        round_s = np.asarray([r["round_s"] for r in rs])   # (runs, rounds)
+        images = TRAIN_BATCH * sum(seq["steps"])
+        per_engine[e] = dict(
+            runs=len(rs),
+            local_s_by_round_median=np.median(round_s, axis=0).tolist(),
+            local_s_by_round=round_s.tolist(),
+            local_s_median=float(np.median(round_s.sum(axis=1))),
+            images_per_s_median=float(np.median(images
+                                                / round_s.sum(axis=1))),
+            peak_mem_bytes=[r["peak"] for r in rs],
+            launches=rs[0]["launches"],
+            launches_per_client_step={
+                k: v / sum(seq["steps"]) for k, v in rs[0]["launches"].items()},
+            steps=rs[0]["batched_steps"],
+            launches_per_step={k: v / rs[0]["batched_steps"]
+                               for k, v in rs[0]["launches"].items()})
+    emit("train", run="engines", clients=TRAIN_CLIENTS,
+         client_steps=sum(seq["steps"]), **per_engine,
+         speedup_images_per_s=per_engine["vectorized"]["images_per_s_median"]
+         / per_engine["sequential"]["images_per_s_median"])
+
+
+def engine_memory_phase(cfg, rparams, gen, dev):
+    """The vectorized engine's peak device memory against the round's
+    client count C: one round of one sparse step (Omega on) at batch
+    TRAIN_BATCH through ``make_round_engine``, for each C of
+    MEMORY_CLIENTS until the first that runs out of memory.  The engine
+    holds every client's activations at once, so its peak grows with C;
+    ``FedPhD``'s "auto" does not yet bound C by it (ROADMAP C)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.pruning import unet_groups
+    from repro_torch.fl.engine import make_round_engine, stack_trees
+
+    fcfg = cfg.replace(precision="fp32")
+    engine = make_round_engine(fcfg, FLConfig(), sparse=True,
+                               groups=unet_groups(fcfg, rparams),
+                               lr=TRAIN_LR)
+    edge = stack_trees([rparams])
+    img = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    peaks, fits = {}, 0
+    for C in MEMORY_CLIENTS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            batches = {"images": torch.rand((C, 1) + img, generator=gen,
+                                            device=dev) * 2 - 1}
+            draws = (torch.randint(0, cfg.diffusion_steps,
+                                   (C, 1, TRAIN_BATCH), generator=gen,
+                                   device=dev),
+                     torch.randn((C, 1) + img, generator=gen, device=dev))
+            out = engine(edge, np.zeros(C, np.int64), batches,
+                         np.ones((C, 1), bool), draws,
+                         np.full((1, C), 1.0 / C, np.float32))
+            torch.cuda.synchronize()
+        except torch.OutOfMemoryError:
+            peaks[C] = None
+            break
+        finally:
+            batches = draws = out = None
+        peaks[C] = torch.cuda.max_memory_allocated(dev)
+        fits = C
+    torch.cuda.empty_cache()
+    ran = [c for c in peaks if peaks[c] is not None]
+    per_client = (peaks[ran[-1]] - peaks[ran[0]]) / (ran[-1] - ran[0]) \
+        if len(ran) > 1 else None
+    emit("train", run="engine_memory", batch=TRAIN_BATCH, steps=1,
+         sparse=True, peak_mem_bytes_by_clients=peaks,
+         largest_clients_run=fits, bytes_per_client=per_client,
+         total_mem_bytes=torch.cuda.get_device_properties(dev).total_memory)
+    require(fits >= TRAIN_CLIENTS,
+            f"engine memory: {TRAIN_CLIENTS} clients did not fit: {peaks}")
+
+
+def check_vectorized(seq, vec):
+    """The first vectorized run against the first sequential one: the
+    same selections, bitwise bytes, params_m, pruning and prune report;
+    each round's loss within TRAIN_LOSS_RTOL; the final params within
+    TRAIN_PARAMS_ATOL (steps x 2 lr: Adam moves a parameter whose exact
+    gradient is zero by up to lr a step, whichever way rounding noise
+    points) and, for TRAIN_PARAMS_BULK[1] of the values, within
+    TRAIN_PARAMS_BULK[0]; the exact launch counts of VECTORIZED_LAUNCHES,
+    every matmul launch over all the clients."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    hs, hv = seq["hist"], vec["hist"]
+    a, b = seq["trainer"], vec["trainer"]
+    loss_rel = [abs(x.loss - y.loss) / abs(x.loss) for x, y in zip(hs, hv)]
+    diffs = torch.cat([(x - y).abs().reshape(-1).float().cpu()
+                       for x, y in zip(tree_leaves(a.params),
+                                       tree_leaves(b.params))])
+    bulk = float((diffs <= TRAIN_PARAMS_BULK[0]).float().mean())
+    launches, tally = vec["launches"], vec["tally"]
+    mm_keys = set(tally["block_masked_matmul"])
+    emit("train", run="vectorized vs sequential", rounds=len(hv),
+         loss=[r.loss for r in hv], loss_rel_err=loss_rel,
+         loss_rtol=TRAIN_LOSS_RTOL, max_abs_param_diff=float(diffs.max()),
+         params_atol=TRAIN_PARAMS_ATOL, params_within_bulk=bulk,
+         params_bulk=TRAIN_PARAMS_BULK, launches=launches,
+         group_l2_bwd=vec["gl2_bwd"], group_l2_in_round1=vec["omega"],
+         matmul_dx=sum(tally["block_masked_matmul_dx"].values()),
+         matmul_clients=sorted({k[5] if len(k) > 5 else 1
+                                for k in mm_keys}),
+         round_seconds=vec["round_s"], peak_mem_bytes=vec["peak"])
+    same = [(x.selected, x.comm_gb, x.comm_up_gb, x.comm_down_gb,
+             x.params_m, x.pruned, x.edge_sh) for x in hs]
+    require(same == [(y.selected, y.comm_gb, y.comm_up_gb, y.comm_down_gb,
+                      y.params_m, y.pruned, y.edge_sh) for y in hv],
+            "train vectorized: selections, bytes, params_m or pruning "
+            "differ from the sequential run")
+    require(a.prune_report == b.prune_report and a.cfg == b.cfg,
+            "train vectorized: the prune report differs")
+    require(max(loss_rel) <= TRAIN_LOSS_RTOL,
+            f"train vectorized: round losses {loss_rel} relative, limit "
+            f"{TRAIN_LOSS_RTOL}")
+    require(float(diffs.max()) <= TRAIN_PARAMS_ATOL
+            and bulk >= TRAIN_PARAMS_BULK[1],
+            f"train vectorized: params differ by up to {float(diffs.max())} "
+            f"(limit {TRAIN_PARAMS_ATOL}), {bulk} within "
+            f"{TRAIN_PARAMS_BULK[0]} (want {TRAIN_PARAMS_BULK[1]})")
+    got = dict(launches, group_l2_norms_bwd=vec["gl2_bwd"])
+    want = dict(VECTORIZED_LAUNCHES, rglru_scan=0)
+    require(got == want, f"train vectorized: launches {got}, want {want}")
+    require(all(len(k) == 6 and k[5] == TRAIN_CLIENTS for k in mm_keys)
+            and vec["omega"] == (2, 2),
+            f"train vectorized: a matmul launch without the client axis "
+            f"of {TRAIN_CLIENTS}, or Omega launches {vec['omega']}")
+    require(all(sum(t.values()) == launches[k] for k, t in tally.items()
+                if k in launches),
+            f"train vectorized: per-shape tallies do not add up to "
+            f"{launches}")
 
 
 # kernel-name fragments -> category, for the profile's device-time split
@@ -891,13 +1176,19 @@ def profiled(fn, out_path):
 
 
 def profile_phase(cfg, dev, out_dir):
-    """``--profile``: a second, identical training run under
-    ``torch.profiler`` (:func:`profiled`)."""
-    trainer = make_trainer(cfg, dev)
-    summary = profiled(trainer.run, os.path.join(out_dir,
-                                                 "train_profile.txt"))
-    emit("profile", run="train, profiled",
-         steps=len(trainer.step_seconds), **summary)
+    """``--profile``: one more training run on each engine under
+    ``torch.profiler`` (:func:`profiled`): kernels a step are per client
+    step on the sequential engine, per batched step (all the clients) on
+    the vectorized one."""
+    for engine in TRAIN_ENGINES:
+        trainer = make_trainer(cfg, dev, engine)
+        summary = profiled(trainer.run, os.path.join(
+            out_dir, f"train_{engine}_profile.txt"))
+        steps = len(trainer.step_seconds) if engine == "sequential" else \
+            3 * max(c.data.steps_per_epoch for c in trainer.clients)
+        emit("profile", run=f"train {engine}, profiled", steps=steps,
+             device_kernels_per_step=summary["device_kernels"] / steps,
+             **summary)
 
 
 def lm_profile_phase(cfg, params, dev, out_dir):
@@ -1002,6 +1293,80 @@ def grad_phase(cfg, rparams, gen, dev, counters):
         require(max(rel) <= GRAD_LEAF_TOL,
                 f"grad {label}: a leaf's gradient is {max(rel)} of its own "
                 f"max|plain| (limit {GRAD_LEAF_TOL})")
+
+
+def grad_stacked_phase(cfg, rparams, gen, dev, counters):
+    """One stacked loss and gradient of GRAD_CLIENTS clients (batch
+    GRAD_BATCH each, injected t and eps), as a vectorized step takes it:
+    every GEMM one client-axis matmul launch, Omega one client-axis
+    group-L2 launch.  Held against each client's own loss and gradient
+    through the kernels' one-client launches: losses within FORWARD_TOL,
+    each gradient within GRAD_TOL of the largest of any client's leaf."""
+    import torch
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.pruning import depth_lambdas, omega, unet_groups
+    from repro_torch.diffusion import ddpm_loss, linear_schedule
+    from repro_torch.fl.client import make_loss_fn
+    from repro_torch.fl.engine import stack_trees
+    from repro_torch.models.unet import apply_unet
+    from repro_torch.tree import tree_leaves, tree_map
+
+    C, B = GRAD_CLIENTS, GRAD_BATCH
+    img = (C * B, cfg.image_size, cfg.image_size, cfg.in_channels)
+    x0 = torch.rand(img, generator=gen, device=dev) * 2 - 1
+    t = torch.randint(0, cfg.diffusion_steps, (C * B,), generator=gen,
+                      device=dev)
+    eps = torch.randn(img, generator=gen, device=dev)
+    singles = [rparams] + [randomize(rparams, gen) for _ in range(C - 1)]
+    stacked = stack_trees(singles)
+    groups = unet_groups(cfg, rparams)
+    fl = FLConfig()
+    sched = linear_schedule(cfg.diffusion_steps, device=dev)
+    for label, sparse in (("stacked dense + omega", True),
+                          ("stacked dense", False)):
+        loss_fn = make_loss_fn(cfg, fl, sparse=sparse, groups=groups)
+        before = {k: (fn.launches, dict(fn.shapes))
+                  for k, fn in counters.items()}
+        p = tree_map(lambda v: v.detach().requires_grad_(), stacked)
+        losses = loss_fn(p, {"images": x0}, None, clients=C, t=t, eps=eps)
+        grads = torch.autograd.grad(losses.sum(), tree_leaves(p))
+        torch.cuda.synchronize()
+        ran = {k: fn.launches - before[k][0] for k, fn in counters.items()}
+        keys = {k: {key for key, n in fn.shapes.items()
+                    if n > before[k][1].get(key, 0)}
+                for k, fn in counters.items()}
+        lam = depth_lambdas(groups, fl.lambda0)
+        want_l, want_g = [], []
+        for c in range(C):
+            q = tree_map(lambda v: v.detach().requires_grad_(), singles[c])
+            sl = slice(c * B, (c + 1) * B)
+            loss = ddpm_loss(lambda x, tt: apply_unet(q, cfg, x, tt), sched,
+                             x0[sl], t=t[sl], eps=eps[sl])
+            if sparse:
+                loss = loss + omega(q, groups, lam)
+            want_g.append(torch.autograd.grad(loss, tree_leaves(q)))
+            want_l.append(float(loss.detach()))
+        scale = max(float(g.abs().max()) for gs in want_g for g in gs)
+        err = max(float((a[c] - gs[i]).abs().max())
+                  for c, gs in enumerate(want_g) for i, a in enumerate(grads))
+        losses = losses.detach()
+        loss_err = max(abs(float(losses[c]) - want_l[c]) / abs(want_l[c])
+                       for c in range(C))
+        emit("grad", model=label, clients=C, batch=B,
+             losses=losses.tolist(), losses_per_client=want_l,
+             loss_rel_err=loss_err, max_abs_grad=scale,
+             max_abs_grad_err=err, tol=GRAD_TOL * scale,
+             kernel_launches=ran)
+        mm_c = {k[5] if len(k) > 5 else None
+                for k in keys["block_masked_matmul"]}
+        require(ran["block_masked_matmul"] > 0 and mm_c <= {C}
+                and ran["flash_attention"] > 0
+                and ran["group_l2_norms"] == int(sparse),
+                f"grad {label}: launches {ran}, matmul clients {mm_c}")
+        require(loss_err <= FORWARD_TOL,
+                f"grad {label}: losses {losses.tolist()} vs {want_l}")
+        require(err <= GRAD_TOL * scale and scale > 0,
+                f"grad {label}: gradient err {err} > {GRAD_TOL} x {scale}")
 
 
 # ---------------------------------------------------------------------------
@@ -1120,7 +1485,9 @@ def run(out_dir: str, profile: bool = False) -> dict:
                     f"launches, want {1 if extra else 0}")
 
     # -- 4. the U-Net kernels' main path: training ---------------------------
-    tallies["train"] = train_phase(cfg, dev, counters, zero_counters)
+    train_tallies, train_runs = train_phase(cfg, dev, counters,
+                                            zero_counters)
+    tallies.update(train_tallies)
 
     # -- 5-7. RecurrentGemma serving: full model, then depth 5 in fp32 -------
     from repro_torch.configs import get_config
@@ -1162,13 +1529,14 @@ def run(out_dir: str, profile: bool = False) -> dict:
         if row.get("key") is not None:
             row["launches"] = {p: tallies[p][row["kernel"]].get(row["key"], 0)
                                for p in PATHS}
-            if row["kernel"] == "block_masked_matmul":
-                row["launches"]["train_dx"] = \
-                    tallies["train"]["block_masked_matmul_dx"].get(
-                        row["key"], 0)
-            if row["kernel"] == "group_l2_norms":
-                row["launches"]["train_bwd"] = \
-                    tallies["train"]["group_l2_norms_bwd"].get(row["key"], 0)
+            for p in TRAIN_PATHS:
+                if row["kernel"] == "block_masked_matmul":
+                    row["launches"][f"{p}_dx"] = \
+                        tallies[p]["block_masked_matmul_dx"].get(row["key"],
+                                                                 0)
+                if row["kernel"] == "group_l2_norms":
+                    row["launches"][f"{p}_bwd"] = \
+                        tallies[p]["group_l2_norms_bwd"].get(row["key"], 0)
         rows.append(row)
         if row["kernel"] == "group_l2_norms":   # the signature is the table
             row = {**row, "key": row["signature"] if row["key"] else None}
@@ -1178,41 +1546,53 @@ def run(out_dir: str, profile: bool = False) -> dict:
         return "bfloat16" if dt == "float32" else "float32"
 
     try:
-        dx_keys = tallies["train"]["block_masked_matmul_dx"]
+        dx_of = {p: tallies[p].get("block_masked_matmul_dx", {})
+                 for p in PATHS}
         fwd_keys = [k for k in launched("block_masked_matmul")
                     if any(tallies[p]["block_masked_matmul"].get(k, 0)
-                           > (dx_keys.get(k, 0) if p == "train" else 0)
-                           for p in PATHS)]
+                           > dx_of[p].get(k, 0) for p in PATHS)]
+        dx_keys = sorted(set(dx_of["train"]) | set(dx_of["train_vectorized"]))
         mm_keys = launched("block_masked_matmul")
         serve_mm = set(launched("block_masked_matmul", ("dense", "pruned")))
         largest = sorted(set(tallies["train"]["block_masked_matmul"])
                          - serve_mm, key=lambda k: -k[0] * k[1] * k[2])[:4]
         cases = []
         for key in fwd_keys:
-            M, K, N, masked, dt = key
+            M, K, N, masked, dt, *c = key
             ratio = 0.44 if masked else None
-            cases.append(((M, K, N), ratio, dt, key, "fwd"))
+            cases.append(((M, K, N), ratio, dt, key, "fwd",
+                          c[0] if c else None))
             # serving shapes in the other dtype too; training shapes at
             # the largest few
             if key in serve_mm or key in largest:
-                cases.append(((M, K, N), ratio, other(dt), None, "fwd"))
-        for key in sorted(dx_keys):      # as the backward launches them
-            M, K, N, masked, dt = key
+                cases.append(((M, K, N), ratio, other(dt), None, "fwd",
+                              None))
+        for key in dx_keys:              # as the backward launches them
+            M, K, N, masked, dt, *c = key
             cases.append(((M, K, N), 0.44 if masked else None, dt, key,
-                          "dx"))
+                          "dx", c[0] if c else None))
+        # the client axis at the prune masks: the largest batched shape
+        M, K, N, _, dt, c = max((k for k in mm_keys if len(k) > 5),
+                                key=lambda k: k[0] * k[1] * k[2])
+        cases += [((M, K, N), 0.44, dt, None, role, c)
+                  for role in ("fwd", "dx")]
         for shape in [(8, 27, 3), (8192, 1152, 128), (2048, 2304, 256),
                       (512, 4608, 256), (1000, 999, 77)]:
             for dt in ("float32", "bfloat16"):
                 for ratio in (0.0, 0.44, 0.9):
-                    cases.append((shape, ratio, dt, None, "fwd"))
+                    cases.append((shape, ratio, dt, None, "fwd", None))
         for dt in ("float32", "bfloat16"):   # ragged, unaligned, in place
-            cases.append(((1000, 999, 77), 0.44, dt, None, "dx"))
+            cases.append(((1000, 999, 77), 0.44, dt, None, "dx", None))
+            cases.append(((1000, 999, 77), 0.44, dt, None, "dx", 3))
         mm_err = check_matmul(cases, gen, dev, log)
         emit("kernels", kernel="block_masked_matmul",
              launched_shapes=len(mm_keys),
              split_k_cases=sum(r.get("plan", {}).get("splits", 1) > 1
                                for r in rows),
-             train_dx_shapes=len(tallies["train"]["block_masked_matmul_dx"]),
+             train_dx_shapes=len(dx_of["train"]),
+             train_vectorized_dx_shapes=len(dx_of["train_vectorized"]),
+             bitwise_per_client_cases=sum(
+                 r.get("bitwise_per_client") is True for r in rows),
              cases=len(cases), max_abs_err=mm_err, tol_rel=TOL)
 
         att_keys = launched("flash_attention")
@@ -1261,6 +1641,11 @@ def run(out_dir: str, profile: bool = False) -> dict:
     finally:
         case_log.close()
 
+    # -- 4 (continued). the engines' timing runs, after the kernels' times -
+    train_timing_phase(cfg, dev, counters, zero_counters, train_runs)
+    del train_runs
+    engine_memory_phase(cfg, rparams, gen, dev)
+
     # -- 9. full-width forward: kernels vs plain versions --------------------
     # The plain forward runs on CPU copies: device dispatch picks the plain
     # versions, and no kernel can launch there.
@@ -1294,6 +1679,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
 
     # -- 10. one loss and gradient: kernels vs plain versions ----------------
     grad_phase(cfg, rparams, gen, dev, counters)
+    grad_stacked_phase(cfg, rparams, gen, dev, counters)
     if profile:
         profile_phase(cfg, dev, out_dir)
 
@@ -1304,18 +1690,20 @@ def run(out_dir: str, profile: bool = False) -> dict:
             "rglru_scan": scan_err["float32"]}
     for name, err in errs.items():
         paths = {p: path_totals(rows, tallies[p][name]) for p in PATHS
-                 if not (p == "train" and name == "block_masked_matmul")}
-        if name == "block_masked_matmul":
-            dx = tallies["train"]["block_masked_matmul_dx"]
-            fwd = {k: n - dx.get(k, 0)
-                   for k, n in tallies["train"][name].items()}
-            f = path_totals(rows, {k: n for k, n in fwd.items() if n})
-            d = path_totals(rows, dx, role="dx")
-            paths["train"] = {**add_totals(f, d), "fwd": f, "dx": d}
+                 if not (p in TRAIN_PATHS and name == "block_masked_matmul")}
         extra = {}
-        if name == "group_l2_norms":
-            extra["backward"] = path_totals(
-                rows, tallies["train"]["group_l2_norms_bwd"], role="bwd")
+        for p in TRAIN_PATHS:
+            if name == "block_masked_matmul":
+                dx = tallies[p]["block_masked_matmul_dx"]
+                fwd = {k: n - dx.get(k, 0)
+                       for k, n in tallies[p][name].items()}
+                f = path_totals(rows, {k: n for k, n in fwd.items() if n})
+                d = path_totals(rows, dx, role="dx")
+                paths[p] = {**add_totals(f, d), "fwd": f, "dx": d}
+            if name == "group_l2_norms":
+                extra["backward" if p == "train" else f"backward_{p}"] = \
+                    path_totals(rows, tallies[p]["group_l2_norms_bwd"],
+                                role="bwd")
         main = paths[MAIN_PATHS[name]]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name],

@@ -35,6 +35,16 @@ def combine_leaf(stacked: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(stacked.dtype)
 
 
+def weighted_average_stacked(stacked_tree, weights):
+    """sum_n w_n theta_n over the leading member axis of every leaf of a
+    stacked tree; ``weights`` (N,) gives one tree, a (G, N) matrix of
+    rows (the vectorized engine's (E, C) edge rows) G trees stacked on a
+    leading axis.  The rows are used as given (callers normalize)."""
+    w = torch.as_tensor(np.asarray(weights, np.float32),
+                        device=tree_leaves(stacked_tree)[0].device)
+    return tree_map(lambda leaf: combine_leaf(leaf, w), stacked_tree)
+
+
 def weighted_average(param_trees: Sequence, weights: Sequence[float]):
     """sum_i w_i theta_i with the weights normalized to 1."""
     w = normalize_weights(weights).astype(np.float32)

@@ -1,5 +1,4 @@
-"""The FedPhD trainer (``repro/core/hfl.py``; paper Algorithm 1),
-sequential engine.
+"""The FedPhD trainer (``repro/core/hfl.py``; paper Algorithm 1).
 
 Three tiers: clients train locally from their edge's model, edges
 aggregate them with homogeneity-aware (SH) weights every r_e rounds,
@@ -17,33 +16,46 @@ exactly.  The model's own randomness (init, DDPM t and eps) comes from
 one ``torch.Generator`` seeded by ``rng_seed``: the reference's
 ``jax.random`` streams cannot be reproduced.
 
-Not ported yet: the vectorized round engine, persistent client Adam
-state, meshes, fault injection and staleness, quantized uplinks,
-tracing, the eval hook and checkpoint state.
+Local training runs on one of two engines, chosen per round as the
+reference chooses: the vectorized engine (:mod:`repro_torch.fl.engine`:
+the round's clients in one client-batched step a batch, one loss sync a
+round) or the sequential one (a client at a time, one step a batch).
+Both consume the generator's draws in the same order.
+
+Not ported yet: meshes, fault injection and staleness, quantized
+uplinks, tracing, the eval hook and checkpoint state.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig
-from repro_torch.core.aggregation import aggregate_fedavg, aggregate_sh
+from repro_torch.core.aggregation import (aggregate_fedavg, aggregate_sh,
+                                          fedavg_weights, normalize_weights,
+                                          sh_weights)
 from repro_torch.core.pruning import (compact, l2_scores, make_masks,
                                       random_scores, unet_groups)
 from repro_torch.core.selection import random_selection, select_edge
 from repro_torch.core.sh_score import (AccumulatedDistribution, sh_score,
                                        uniform_target)
+from repro_torch.data.pipeline import stack_round
 from repro_torch.device import resolve_device
-from repro_torch.experiment.resolve import resolve_precision
+from repro_torch.experiment.resolve import resolve_engine, resolve_precision
 from repro_torch.fl.client import Client, make_local_step, run_local
 from repro_torch.fl.comm import CommModel
+from repro_torch.fl.engine import (draw_round, make_round_engine,
+                                   resolve_store, route_engine,
+                                   stack_trees, stacked_adam_init,
+                                   store_tree, tree_gather, tree_scatter)
 from repro_torch.fl.compress import downlink_bytes, uplink_bytes
 from repro_torch.fl.record import RoundRecord, RunResult
 from repro_torch.models import model
 from repro_torch.optim import adam_init
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 SELECTIONS = ("sh", "random")
 AGGREGATIONS = ("sh", "fedavg")
@@ -56,12 +68,27 @@ class FedPhD:
     21-24) or "fedavg".  ``prune=False`` trains the dense model
     throughout.  ``device`` is where the model trains: ``"cuda"`` (the
     default; the kernels) or ``"cpu"`` (their plain versions).
+
+    engine: "vectorized" (:mod:`repro_torch.fl.engine`), "sequential"
+    (one client at a time), "auto" (vectorized whenever the round's
+    clients share a batch shape, else sequential, warning once), or
+    None (the default): ``$FEDPHD_ENGINE`` if set, else "auto".  An
+    explicit "vectorized" raises on ragged clients.
+    persistent_opt: carry each client's Adam moments across rounds in a
+    stacked (N, ...) state, gathered and scattered by the round's
+    participants on either engine (off by default: the paper restarts
+    Adam every round); reset at the prune, where the shapes change.
+    state_store: where that state lives: "device", "host" (numpy; only
+    the round's rows move to the device) or "auto"
+    (:func:`repro_torch.fl.engine.resolve_store`).
     """
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, clients: List[Client],
                  *, rng_seed: int = 0, selection: str = "sh",
                  aggregation: str = "sh", prune: bool = True,
-                 lr: float = 2e-4, device="cuda"):
+                 lr: float = 2e-4, engine: Optional[str] = None,
+                 persistent_opt: bool = False, state_store: str = "auto",
+                 device="cuda"):
         if selection not in SELECTIONS:
             raise ValueError(f"selection {selection!r} not in {SELECTIONS}")
         if aggregation not in AGGREGATIONS:
@@ -75,6 +102,12 @@ class FedPhD:
         self.aggregation = aggregation
         self.prune = prune
         self.lr = lr
+        self.engine, self._engine_strict = resolve_engine(engine)
+        self._warned_ragged = False
+        self.persistent_opt = persistent_opt
+        self._store = resolve_store(
+            state_store, len(clients),
+            max(1, round(fl.participation * len(clients))))
         self.np_rng = np.random.default_rng(rng_seed)
         self.gen = torch.Generator(self.device)
         self.gen.manual_seed(rng_seed)
@@ -91,8 +124,11 @@ class FedPhD:
         self.prune_report: Optional[Dict[str, tuple]] = None
         # edge id -> the edge's model; None until the first edge aggregation
         self._edge_models: Optional[Dict[int, dict]] = None
-        # host seconds of every local step, each ending in its loss sync
+        # host seconds of every sequential local step, each ending in its
+        # loss sync, and of every vectorized round's local training, from
+        # the batches' upload to the round's loss sync
         self.step_seconds: List[float] = []
+        self.round_seconds: List[float] = []
 
         if prune and fl.prune_mode.startswith("oneshot"):
             self._prune_now(mode=fl.prune_mode)
@@ -118,8 +154,20 @@ class FedPhD:
             lr=self.lr) if sparse else None
         self.step_plain = make_local_step(self.cfg, self.fl, sparse=False,
                                           lr=self.lr)
-        # one Adam zero-state per model shape, shared by every client
+        self._engine_sparse = make_round_engine(
+            self.cfg, self.fl, sparse=True, groups=self.groups,
+            lr=self.lr) if sparse else None
+        self._engine_plain = make_round_engine(self.cfg, self.fl,
+                                               sparse=False, lr=self.lr)
+        # one Adam zero-state per model shape, shared by every client of
+        # the sequential engine
         self._opt_zero = adam_init(self.params)
+        # persistent per-client moments: a stacked (N, ...) state both
+        # engines gather and scatter by participation, reset (rebuilt as
+        # zeros) whenever pruning changes the parameter shapes
+        self._opt_stack = stacked_adam_init(
+            self.params, len(self.clients), host=self._store == "host") \
+            if self.persistent_opt else None
 
     # -- bookkeeping ----------------------------------------------------------
     def _param_count_m(self) -> float:
@@ -131,7 +179,20 @@ class FedPhD:
                 downlink_bytes(self.params, self.cfg.precision))
 
     # -- local training + edge aggregation (Alg. 1 lines 7-21) ---------------
+    def _use_vectorized(self, round_clients) -> bool:
+        use, self._warned_ragged = route_engine(
+            self.engine, self._engine_strict, round_clients,
+            self._warned_ragged)
+        return use
+
+    def _opt_rows(self, idx):
+        """The persistent Adam rows of clients ``idx``, on the device."""
+        return store_tree(tree_gather(self._opt_stack, idx), "device",
+                          self.device)
+
     def _local_and_edge_sequential(self, r, assignment, sparse_round, wire):
+        """One client after another, one step a batch; Python
+        aggregation per edge."""
         fl = self.fl
         up, down = wire
         step_fn = self.step_sparse if sparse_round else self.step_plain
@@ -145,11 +206,16 @@ class FedPhD:
             client_models, counts, mus = [], [], []
             for cid in cids:
                 cl = self.clients[cid]
-                p, _, loss = run_local(step_fn, edge_model, cl,
-                                       epochs=fl.local_epochs,
-                                       generator=self.gen,
-                                       opt_state=self._opt_zero,
-                                       step_seconds=self.step_seconds)
+                opt_in = self._opt_rows(int(cid)) if self.persistent_opt \
+                    else self._opt_zero
+                p, opt_out, loss = run_local(step_fn, edge_model, cl,
+                                             epochs=fl.local_epochs,
+                                             generator=self.gen,
+                                             opt_state=opt_in,
+                                             step_seconds=self.step_seconds)
+                if self.persistent_opt:
+                    self._opt_stack = tree_scatter(self._opt_stack,
+                                                   int(cid), opt_out)
                 round_losses.append(loss)
                 self.edges[e].update(cl.q_n, cl.n_samples)      # Eq. 19
                 up_bytes += self.comm.client_edge(up)          # upload
@@ -167,6 +233,63 @@ class FedPhD:
                 self._edge_models[e] = agg
                 down_bytes += self.comm.client_edge(down) * len(cids)
         return round_losses, up_bytes, down_bytes
+
+    def _local_and_edge_vectorized(self, r, assignment, sparse_round, wire):
+        """All the round's clients in one client-batched step a batch
+        (:mod:`repro_torch.fl.engine`), the edges aggregated by one fused
+        (E, C) contraction, the losses synced once."""
+        fl = self.fl
+        up, down = wire
+        order = [(e, cid) for e, cids in assignment.items() for cid in cids]
+        clients = [self.clients[cid] for _, cid in order]
+        # the clients' shuffles in edge-iteration order, as the
+        # sequential loop draws them
+        batches, valid = stack_round([cl.data for cl in clients],
+                                     fl.local_epochs)
+        t0 = time.perf_counter()
+        batches = {k: torch.as_tensor(v, device=self.device)
+                   for k, v in batches.items()}
+        # the DDPM draws, client after client, in the sequential order
+        draws = draw_round(self.gen, valid, batches["images"].shape[2:],
+                           self.cfg.diffusion_steps, self.device)
+        edge_models = self._edge_models or {}
+        edge_stack = stack_trees([edge_models.get(e, self.params)
+                                  for e in range(fl.num_edges)])
+        edge_idx = np.asarray([e for e, _ in order])
+        # W[e] = edge e's normalized Eq. 23/24 weights on its clients
+        w_mat = np.zeros((fl.num_edges, len(order)), np.float32)
+        for e, cids in assignment.items():
+            if not cids:
+                continue
+            counts = [self.clients[cid].n_samples for cid in cids]
+            mus = [sh_score(self.clients[cid].q_n, self.q_u) for cid in cids]
+            w = sh_weights(counts, mus, fl.sh_a, fl.sh_b) \
+                if self.aggregation == "sh" else fedavg_weights(counts)
+            w_mat[e, edge_idx == e] = normalize_weights(w)
+        engine = self._engine_sparse if sparse_round else self._engine_plain
+        idx = np.asarray([cid for _, cid in order])
+        out = engine(edge_stack, edge_idx, batches, valid, draws, w_mat,
+                     opt_states=self._opt_rows(idx)
+                     if self.persistent_opt else None)
+        self.round_seconds.append(time.perf_counter() - t0)
+        if self.persistent_opt:
+            self._opt_stack = tree_scatter(self._opt_stack, idx, out["opt"])
+
+        up_bytes, down_bytes = 0.0, 0.0
+        for e, cid in order:
+            cl = self.clients[cid]
+            self.edges[e].update(cl.q_n, cl.n_samples)          # Eq. 19
+            up_bytes += self.comm.client_edge(up)              # upload
+        if r % fl.edge_agg_every == 0:
+            if self._edge_models is None:
+                self._edge_models = {}
+            for e, cids in assignment.items():
+                if not cids:
+                    continue
+                self._edge_models[e] = tree_map(lambda leaf, _e=e: leaf[_e],
+                                                out["agg"])
+                down_bytes += self.comm.client_edge(down) * len(cids)
+        return list(out["losses"]), up_bytes, down_bytes
 
     # -- one communication round (Alg. 1 lines 3-32) -------------------------
     def run_round(self, r: int) -> RoundRecord:
@@ -195,9 +318,11 @@ class FedPhD:
                         and fl.prune_mode == "group_norm"
                         and r < fl.sparse_rounds)
         wire = self._wire_bytes()
-        round_losses, up_bytes, down_bytes = \
-            self._local_and_edge_sequential(r, assignment, sparse_round,
-                                            wire)
+        local = self._local_and_edge_vectorized \
+            if self._use_vectorized([self.clients[c] for c in sel_ids]) \
+            else self._local_and_edge_sequential
+        round_losses, up_bytes, down_bytes = local(r, assignment,
+                                                   sparse_round, wire)
 
         pruned_this_round = False
         # lines 23-31: cloud aggregation every r_g rounds

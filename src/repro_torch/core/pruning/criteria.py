@@ -11,7 +11,7 @@ every Adam step).
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,9 +34,10 @@ def _paths(groups: Sequence[PruneGroup]) -> Tuple[tuple, ...]:
                                for m in g.members))
 
 
-def _table(groups: Tuple[PruneGroup, ...], leaves) -> gl2.Table:
+def _table(groups: Tuple[PruneGroup, ...], leaves,
+           clients: Optional[int] = None) -> gl2.Table:
     """The launch's table for ``groups`` over tensors of ``leaves``
-    ((shape, dtype) per path of :func:`_paths`)."""
+    ((shape, dtype) per path of :func:`_paths`, one client's)."""
     index = {p: i for i, p in enumerate(_paths(groups))}
     members, base = [], 0
     for g in groups:
@@ -45,7 +46,7 @@ def _table(groups: Tuple[PruneGroup, ...], leaves) -> gl2.Table:
         base += g.size
     names = tuple((tuple(shape), str(dt).removeprefix("torch."))
                   for shape, dt in leaves)
-    return gl2.table((names, tuple(members)))
+    return gl2.table((names, tuple(members)), clients)
 
 
 @functools.lru_cache(maxsize=16)
@@ -55,23 +56,29 @@ def _layout(groups: Tuple[PruneGroup, ...]):
     return _paths(groups), {}
 
 
-def member_table(params, groups: Sequence[PruneGroup]
+def member_table(params, groups: Sequence[PruneGroup],
+                 clients: Optional[int] = None
                  ) -> Tuple[List[torch.Tensor], gl2.Table]:
-    """The tensors and the table of one launch over ``groups``."""
+    """The tensors and the table of one launch over ``groups``; with
+    ``clients=C`` the params are stacked (C, ...) and the table has a
+    client axis."""
     groups = tuple(groups)
     paths, tables = _layout(groups)
     tensors = [get_path(params, p) for p in paths]
-    leaves = tuple((t.shape, t.dtype) for t in tensors)
-    tab = tables.get(leaves)
+    skip = 0 if clients is None else 1
+    leaves = tuple((t.shape[skip:], t.dtype) for t in tensors)
+    tab = tables.get((leaves, clients))
     if tab is None:
-        tab = tables[leaves] = _table(groups, leaves)
+        tab = tables[leaves, clients] = _table(groups, leaves, clients)
     return tensors, tab
 
 
-def unit_sq_norms(params, groups: Sequence[PruneGroup]) -> torch.Tensor:
+def unit_sq_norms(params, groups: Sequence[PruneGroup],
+                  clients: Optional[int] = None) -> torch.Tensor:
     """(sum of sizes,) float32 ||theta^g[k]||_2^2 of every unit of every
-    group, the groups one after another; differentiable."""
-    return ops.segmented_sq_norms(*member_table(params, groups))
+    group, the groups one after another; differentiable.  ``clients=C``:
+    stacked params, (C * sum of sizes,), client after client."""
+    return ops.segmented_sq_norms(*member_table(params, groups, clients))
 
 
 def l2_scores(params, groups: List[PruneGroup]) -> Dict[str, torch.Tensor]:

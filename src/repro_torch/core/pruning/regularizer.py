@@ -12,7 +12,7 @@ their dot product with each unit's lambda_g.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,9 +44,14 @@ def _unit_lambdas(lams: Tuple[float, ...], sizes: Tuple[int, ...],
 
 
 def omega(params, groups: List[PruneGroup],
-          lambdas: Dict[str, np.ndarray]) -> torch.Tensor:
-    """The term a sparse round adds to the local loss (fp32 scalar)."""
-    sq = unit_sq_norms(params, groups)
+          lambdas: Dict[str, np.ndarray],
+          clients: Optional[int] = None) -> torch.Tensor:
+    """The term a sparse round adds to the local loss (fp32 scalar).
+    ``clients=C``: stacked params, each client's Omega from one launch,
+    (C,)."""
+    sq = unit_sq_norms(params, groups, clients)
     lam = _unit_lambdas(tuple(float(lambdas[g.name][0]) for g in groups),
                         tuple(g.size for g in groups), sq.device)
-    return torch.dot(lam, sq)
+    if clients is None:
+        return torch.dot(lam, sq)
+    return torch.mv(sq.view(clients, -1), lam)

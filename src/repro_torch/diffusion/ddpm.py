@@ -27,12 +27,14 @@ def q_sample(schedule: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
 def ddpm_loss(eps_fn: Callable, schedule: DiffusionSchedule,
               x0: torch.Tensor, generator: Optional[torch.Generator] = None,
               *, t: Optional[torch.Tensor] = None,
-              eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+              eps: Optional[torch.Tensor] = None,
+              clients: Optional[int] = None) -> torch.Tensor:
     """Simplified DDPM loss (Eq. 6): mean ||eps - eps_theta(x_t, t)||^2.
 
     ``eps_fn(x_t, t)`` predicts the noise; x0 (B, H, W, C) in [-1, 1].
     ``t`` (B,) and ``eps`` (like x0) are drawn from ``generator`` unless
-    given."""
+    given.  ``clients=C``: x0's batch holds C clients' batches one after
+    another, and the result is each client's mean, (C,)."""
     if (t is None or eps is None) and generator is None:
         raise ValueError("ddpm_loss draws t and eps from a generator: pass "
                          "generator=, or both t= and eps=")
@@ -44,4 +46,6 @@ def ddpm_loss(eps_fn: Callable, schedule: DiffusionSchedule,
         eps = torch.randn(x0.shape, generator=generator, device=x0.device,
                           dtype=x0.dtype)
     pred = eps_fn(q_sample(schedule, x0, t, eps), t)
-    return torch.mean(torch.square(eps - pred))
+    if clients is None:
+        return torch.mean(torch.square(eps - pred))
+    return torch.mean(torch.square(eps - pred).reshape(clients, -1), dim=1)

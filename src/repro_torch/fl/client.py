@@ -25,25 +25,37 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def make_loss_fn(cfg: ModelConfig, fl: FLConfig, *, sparse: bool = False,
-                 groups=None):
-    """``loss_fn(params, batch, generator)``: the DDPM loss, plus Omega
-    when ``sparse`` (and ``groups`` are given).
+                 groups=None, prune_masks=None):
+    """``loss_fn(params, batch, generator=None, *, clients=None, t=None,
+    eps=None)``: the DDPM loss, plus Omega when ``sparse`` (and
+    ``groups`` are given).  The one definition both round engines close
+    over: the sequential step calls it on one client's params and batch
+    (t and eps drawn from ``generator``), the vectorized engine on
+    stacked params with ``clients=C`` and the round's pre-drawn t and
+    eps, for the (C,) per-client losses.
 
-    ``cfg.precision`` is the mixed-precision boundary: under bf16 the
-    float params are cast here, inside the loss, so forward and backward
-    run in bf16 while the gradients come back through the cast as fp32,
-    for the fp32 params the optimizer holds."""
+    ``prune_masks`` (PruneGroup name -> 0/1 device row) switches the
+    U-Net to the masked sparse-phase forward (masked GEMMs instead of
+    pre-zeroed weights).  ``cfg.precision`` is the mixed-precision
+    boundary: under bf16 the float params are cast here, inside the
+    loss, so forward and backward run in bf16 while the gradients come
+    back through the cast as fp32, for the fp32 params the optimizer
+    holds."""
     lambdas = depth_lambdas(groups, fl.lambda0) if (sparse and groups) \
         else None
     dt = compute_dtype(cfg.precision)
 
-    def loss_fn(params, batch, generator):
+    def loss_fn(params, batch, generator=None, *, clients=None, t=None,
+                eps=None):
         if dt != torch.float32:
             params = cast_floats(params, dt)
+        kw = {} if prune_masks is None else {"masks": prune_masks}
+        if clients is not None:
+            kw.update(clients=clients, t=t, eps=eps)
         # through the module attribute, so a caller can swap the loss
-        loss = model.loss_fn(params, cfg, batch, generator)
+        loss = model.loss_fn(params, cfg, batch, generator, **kw)
         if lambdas is not None:
-            loss = loss + omega(params, groups, lambdas)
+            loss = loss + omega(params, groups, lambdas, clients)
         return loss
 
     return loss_fn

@@ -1,5 +1,7 @@
 // Block-masked matmul for Hopper (sm_90a): y = x @ (B * col_mask[None, :] * row_mask[:, None]),
-// where B is w (K, N) or, with trans_b, w.T read in place from a row-major w (N, K).
+// where B is w (K, N) or, with trans_b, w.T read in place from a row-major w (N, K). A client axis
+// batches C independent products of one shape in one launch: x (C, M, K), w (C, K, N) (or (C, N, K)),
+// y (C, M, N), the masks shared by every client (the vectorized round engine's per-client GEMMs).
 //
 // Replaces the TPU kernel repro/kernels/block_masked_matmul/block_masked_matmul.py:block_masked_matmul.
 // x (M, K) row-major, float32 or bfloat16; masks float32 (NULL = all ones); y (M, N) in x's type,
@@ -29,6 +31,11 @@
 // - Split-K for shapes whose output tiles cannot fill the SMs: slice z of the grid walks its own
 //   range of k steps and writes an fp32 partial tile to a workspace; a second kernel sums the slices
 //   in slice order (no atomics), so the result is the same bits on every run.
+// - The client axis shares grid z with the split: z = client * splits + slice. Each client's blocks
+//   run the single-client code on the client's slices of x, w and y (the forward advances the
+//   pointers once; the dx launch, at its register cap, takes row offsets into x as (C*M, K) and so
+//   on), and its partials sit in its own (splits, M, N) planes of the workspace, so a client's
+//   output is the same bits as a one-client launch of the same plan on its slice.
 // - Masks skip work as the TPU kernel's pl.when does: a block whose columns are all masked writes
 //   zeros without reading K; a k step whose rows are all masked is never loaded (each thread walks
 //   the same list of live steps); partly masked tiles are multiplied by the masks in shared memory,
@@ -140,8 +147,9 @@ __device__ __forceinline__ int next_live(const float* rm, int s, int s_end, int 
   return s;
 }
 
-// grid (M tiles, N tiles, splits); slice z covers k steps of DEPTH rows [z * per, min((z + 1) * per,
-// steps)). splits == 1 writes y; otherwise slice z writes its fp32 partial (M, N) tile to ws[z].
+// grid (M tiles, N tiles, clients * splits); z = client * splits + slice, and slice covers k steps of
+// DEPTH rows [slice * per, min((slice + 1) * per, steps)) of that client's product. splits == 1 writes
+// y; otherwise the slice writes its fp32 partial (M, N) tile to ws[client][slice].
 // Resident blocks per SM as ops.py:SLOTS counts them: registers capped at 128 for 256 threads,
 // 170 for 128 or 64.
 template <typename T, int BM, int BN, int KG, bool TRANS_B>
@@ -150,15 +158,27 @@ __global__ void __launch_bounds__(Tiles<BM, BN, KG>::THREADS,
                                       ? 2 : 384 / Tiles<BM, BN, KG>::THREADS)
 bmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ cm,
            const float* __restrict__ rm, T* __restrict__ y, float* __restrict__ ws, int M, int K,
-           int N, int per, int vec) {
+           int N, int per, int vec, int splits) {
   using Tl = Tiles<BM, BN, KG>;
   constexpr int THREADS = Tl::THREADS, DEPTH = Tl::DEPTH, STAGES = Tl::STAGES, TX = BN / 8;
   __shared__ __align__(16) Tl sm;
   const int tid = threadIdx.x, g = tid / Tl::GROUP, gt = tid % Tl::GROUP;
   const int tx = gt % TX, ty = gt / TX;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int client = blockIdx.z / splits, slice = blockIdx.z - client * splits;
+  // The client's operands. Read transposed (dx), its first row of x and y, seen as (C*M, K) and
+  // (C*M, N), and of w, seen as (C*N, K): row offsets, because advanced pointers held 64-bit
+  // registers through the main loop and spilled the 128x128 dx tile at its 128-register cap. The
+  // forward advances the three pointers once instead: row offsets through its w loads cost the
+  // one-client forward 2-8% (tools/matmul_ab.py), advanced pointers nothing.
+  const int xr = TRANS_B ? client * M : 0, wr = TRANS_B ? client * N : 0;
+  if constexpr (!TRANS_B) {
+    x += (int64_t)client * M * K;
+    w += (int64_t)client * K * N;
+    y += (int64_t)client * M * N;
+  }
   const int steps = (K + DEPTH - 1) / DEPTH;
-  const int s_begin = blockIdx.z * per, s_end = min(s_begin + per, steps);
+  const int s_begin = slice * per, s_end = min(s_begin + per, steps);
 
   int live = 0;
   for (int i = tid; i < BN; i += THREADS) {
@@ -180,12 +200,14 @@ bmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __rest
     int next = next_live<DEPTH>(rm, s_begin, s_end, K);  // the next step to load
     int loaded[STAGES];                                   // the step each stage holds
     auto load = [&](int stage, int s) {
-      load_kmajor<T, BM, DEPTH, THREADS, BM + PAD>(sm.a[stage], x, m0, M, s * DEPTH, K, tid);
+      load_kmajor<T, BM, DEPTH, THREADS, BM + PAD>(sm.a[stage], x, xr + m0, xr + M, s * DEPTH, K,
+                                                   tid);
       if constexpr (TRANS_B) {
-        load_kmajor<T, BN, DEPTH, THREADS, BN + PAD>(sm.b[stage], w, n0, N, s * DEPTH, K, tid);
-      } else {
-        load_nmajor<T, BN, DEPTH, THREADS, BN + PAD>(sm.b[stage], w, s * DEPTH, K, n0, N, vec,
+        load_kmajor<T, BN, DEPTH, THREADS, BN + PAD>(sm.b[stage], w, wr + n0, wr + N, s * DEPTH, K,
                                                      tid);
+      } else {
+        load_nmajor<T, BN, DEPTH, THREADS, BN + PAD>(sm.b[stage], w, wr + s * DEPTH, wr + K, n0, N,
+                                                     vec, tid);
       }
       loaded[stage] = s;
     };
@@ -265,7 +287,7 @@ bmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __rest
     if (g != 0) return;
   }
 
-  const bool split = gridDim.z > 1;
+  const bool split = splits > 1;
   float* wsz = split ? ws + (int64_t)blockIdx.z * M * N : nullptr;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -278,7 +300,7 @@ bmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __rest
       const float* v = &acc[i][4 * h];
       if ((split || std::is_same<T, float>::value) && N % 4 == 0) {  // 16-byte aligned rows
         float* dst = split ? wsz + (int64_t)m * N + n
-                           : reinterpret_cast<float*>(y + (int64_t)m * N + n);
+                           : reinterpret_cast<float*>(y + (int64_t)(xr + m) * N + n);
         *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
 #pragma unroll
@@ -287,7 +309,7 @@ bmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __rest
           if (split) {
             wsz[(int64_t)m * N + n + j] = v[j];
           } else {
-            y[(int64_t)m * N + n + j] = from_f<T>(v[j]);
+            y[(int64_t)(xr + m) * N + n + j] = from_f<T>(v[j]);
           }
         }
       }
@@ -295,53 +317,56 @@ bmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __rest
   }
 }
 
-// y = sum over the slices of ws (splits, n), in slice order
+// y[c] = sum over the slices of ws[c] (clients, splits, n), in slice order; grid y is the client
 template <typename T>
 __global__ void splitk_sum_kernel(const float* __restrict__ ws, T* __restrict__ y, int64_t n,
                                   int splits) {
+  const float* wc = ws + (int64_t)blockIdx.y * splits * n;
+  T* yc = y + (int64_t)blockIdx.y * n;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    float s = ws[i];
-    for (int z = 1; z < splits; ++z) s += ws[(int64_t)z * n + i];
-    y[i] = from_f<T>(s);
+    float s = wc[i];
+    for (int z = 1; z < splits; ++z) s += wc[(int64_t)z * n + i];
+    yc[i] = from_f<T>(s);
   }
 }
 
 template <typename T, int BM, int BN, int KG>
 int launch(const void* x, const void* w, const float* cm, const float* rm, void* y, float* ws,
-           int M, int K, int N, int trans_b, int splits, int per, int vec, cudaStream_t s) {
+           int C, int M, int K, int N, int trans_b, int splits, int per, int vec, cudaStream_t s) {
   using Tl = Tiles<BM, BN, KG>;
   const int64_t steps = (K + Tl::DEPTH - 1) / Tl::DEPTH;
-  if (splits < 1 || per < 1 || (int64_t)splits * per < steps || (splits > 1 && !ws) ||
+  if (C < 1 || splits < 1 || per < 1 || (int64_t)C * splits > 65535 ||
+      (int64_t)splits * per < steps || (splits > 1 && !ws) ||
       (splits > 1 && (int64_t)(splits - 1) * per >= steps))  // a slice would be empty
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, C * splits);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* yt = static_cast<T*>(y);
   if (trans_b) {
     bmm_kernel<T, BM, BN, KG, true><<<grid, Tl::THREADS, 0, s>>>(xt, wt, cm, rm, yt, ws, M, K, N,
-                                                                 per, vec);
+                                                                 per, vec, splits);
   } else {
     bmm_kernel<T, BM, BN, KG, false><<<grid, Tl::THREADS, 0, s>>>(xt, wt, cm, rm, yt, ws, M, K, N,
-                                                                  per, vec);
+                                                                  per, vec, splits);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int64_t n = (int64_t)M * N;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  splitk_sum_kernel<T><<<blocks, 256, 0, s>>>(ws, yt, n, splits);
+  splitk_sum_kernel<T><<<dim3(blocks, C), 256, 0, s>>>(ws, yt, n, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the tiles ops.py:plan chooses from; 64x64 runs four K groups (ops.py:KGROUPS)
 template <typename T>
 int launch_tile(int bm, int bn, const void* x, const void* w, const float* cm, const float* rm,
-                void* y, float* ws, int M, int K, int N, int trans_b, int splits, int per, int vec,
-                cudaStream_t s) {
+                void* y, float* ws, int C, int M, int K, int N, int trans_b, int splits, int per,
+                int vec, cudaStream_t s) {
 #define BMM_TILE(BM_, BN_, KG_)                                                                 \
   if (bm == BM_ && bn == BN_)                                                                 \
-    return launch<T, BM_, BN_, KG_>(x, w, cm, rm, y, ws, M, K, N, trans_b, splits, per, vec, s);
+    return launch<T, BM_, BN_, KG_>(x, w, cm, rm, y, ws, C, M, K, N, trans_b, splits, per, vec, s);
   BMM_TILE(128, 128, 1)
   BMM_TILE(128, 64, 1)
   BMM_TILE(64, 128, 1)
@@ -352,19 +377,20 @@ int launch_tile(int bm, int bn, const void* x, const void* w, const float* cm, c
 
 }  // namespace
 
-// bm x bn blocks (128 or 64 each); splits > 1 needs ws of splits * M * N floats; per: k steps per
-// slice (of 8 rows, 32 for the 64x64 tile), with every slice non-empty; vec: 16-byte copies of w
+// C clients (C * splits <= 65535, C * max(M, K, N) < 2^31); bm x bn blocks (128 or 64 each); splits > 1 needs ws of
+// C * splits * M * N floats; per: k steps per slice (of 8 rows, 32 for the 64x64 tile), with every
+// slice non-empty; vec: 16-byte copies of w (every client's rows 16-byte aligned)
 extern "C" int bmm_launch(const void* x, const void* w, const void* cm, const void* rm, void* y,
-                          void* ws, int M, int K, int N, int bf16, int trans_b, int bm, int bn,
-                          int splits, int per, int vec, void* stream) {
+                          void* ws, int C, int M, int K, int N, int bf16, int trans_b, int bm,
+                          int bn, int splits, int per, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(cm);
   const float* r = static_cast<const float*>(rm);
   float* wsf = static_cast<float*>(ws);
-  return bf16 ? launch_tile<__nv_bfloat16>(bm, bn, x, w, c, r, y, wsf, M, K, N, trans_b, splits,
-                                           per, vec, s)
-              : launch_tile<float>(bm, bn, x, w, c, r, y, wsf, M, K, N, trans_b, splits, per, vec,
-                                   s);
+  return bf16 ? launch_tile<__nv_bfloat16>(bm, bn, x, w, c, r, y, wsf, C, M, K, N, trans_b,
+                                           splits, per, vec, s)
+              : launch_tile<float>(bm, bn, x, w, c, r, y, wsf, C, M, K, N, trans_b, splits, per,
+                                   vec, s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -38,10 +38,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 SIGNATURES = {
-    # x, w, col_mask, row_mask, y, workspace, M, K, N, bf16, trans_b, bm,
-    # bn, splits, per, vec, stream
+    # x, w, col_mask, row_mask, y, workspace, C, M, K, N, bf16, trans_b,
+    # bm, bn, splits, per, vec, stream
     "bmm_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _P],
+                   _I, _I, _I, _P],
     # q, k, v, o, BH, Sq, Skv, hd, causal, window, bf16, kernel, vec, stream
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P],

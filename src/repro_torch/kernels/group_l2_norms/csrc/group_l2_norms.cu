@@ -32,6 +32,13 @@
 //   repro/models/ops.py:_group_sq_pallas_bwd applied to every member at once), over the same work
 //   items, in the tensor's type; 2 * w is exact, so it equals the plain formula bit for bit.
 //
+// Client axis: the vectorized round engine stacks every parameter of C clients on a leading axis, and
+//   one launch computes each client's sums. The table then holds C copies of every member (and of its
+//   items, groups and pass-2 items), copy c reading from a 64-bit element offset of c * (elements per
+//   client) into the stacked tensor and writing to units c * units + base. A copy's work is the
+//   one-client work shifted, so each client's sums and gradient are the bits a one-client launch on
+//   its slice gives. One pointer per stacked tensor keeps the pointer table as small as one client's.
+//
 // Pointers: the ~170 tensors' pointers travel by value as a kernel parameter of MAX_TENSORS
 // pointers (1,920 bytes; the backward's two tables 3,840), under the 4 KB that every CUDA 12
 // toolkit accepts, so no per-call copy to the device and no pinned staging buffer is needed.
@@ -44,7 +51,7 @@ namespace {
 constexpr int MAX_TENSORS = 240;
 constexpr int THREADS = 256;
 constexpr int COLT = 64, ROWT = 4, TILE_COLS = COLT * 4;  // column mode: 256 columns a tile
-constexpr int MREC = 16, IREC = 4, GREC = 4;             // ints per member, item, group record
+constexpr int MREC = 18, IREC = 4, GREC = 4;             // ints per member, item, group record
 
 struct Ptrs {
   const void* p[MAX_TENSORS];
@@ -57,6 +64,7 @@ struct OutPtrs {
 struct Member {
   int tensor, bf16, run, vec, outer, rowstride, start, R, size, base, pbase, pstride, pr, nslabs,
       rows, ncols;
+  int64_t off;  // the member's first element in its tensor: its client's copy (ints 16, 17: lo, hi)
 };
 
 __device__ __forceinline__ Member read_member(const int* __restrict__ desc, int m) {
@@ -78,7 +86,16 @@ __device__ __forceinline__ Member read_member(const int* __restrict__ desc, int 
   v.nslabs = __ldg(r + 13);
   v.rows = __ldg(r + 14);
   v.ncols = __ldg(r + 15);
+  v.off = (static_cast<int64_t>(__ldg(r + 17)) << 32) | static_cast<uint32_t>(__ldg(r + 16));
   return v;
+}
+
+// a tensor's base pointer advanced by a member's client offset
+__device__ __forceinline__ const void* at(const void* p, const Member& m) {
+  return static_cast<const char*>(p) + m.off * (m.bf16 ? 2 : 4);
+}
+__device__ __forceinline__ void* at(void* p, const Member& m) {
+  return static_cast<char*>(p) + m.off * (m.bf16 ? 2 : 4);
 }
 
 __device__ __forceinline__ float ld1(const void* p, int64_t i, int bf16) {
@@ -122,7 +139,7 @@ group_l2_partials(const Ptrs ptrs, const int* __restrict__ desc, const int* __re
   const Member m = read_member(desc, __ldg(it + 0));
   const int c0 = __ldg(it + 1), slab = __ldg(it + 2);
   const int r0 = slab * m.rows, r1 = min(r0 + m.rows, m.outer);
-  const void* w = ptrs.p[m.tensor];
+  const void* w = at(ptrs.p[m.tensor], m);
   const int tid = threadIdx.x;
   float* out = partial + m.pbase + (int64_t)slab * m.pstride;
 
@@ -222,8 +239,8 @@ group_l2_bwd(const Ptrs ptrs, const OutPtrs grads, const int* __restrict__ desc,
   const Member m = read_member(desc, __ldg(it + 0));
   const int c0 = __ldg(it + 1), slab = __ldg(it + 2);
   const int r0 = slab * m.rows, r1 = min(r0 + m.rows, m.outer);
-  const void* w = ptrs.p[m.tensor];
-  void* dw = grads.p[m.tensor];
+  const void* w = at(ptrs.p[m.tensor], m);
+  void* dw = at(grads.p[m.tensor], m);
   const float* g = gout + m.base;
   const int tid = threadIdx.x;
 
@@ -270,7 +287,7 @@ group_l2_bwd(const Ptrs ptrs, const OutPtrs grads, const int* __restrict__ desc,
 
 }  // namespace
 
-// desc: the device table [members (16 ints each) | items (4) | groups (4) | pass-2 items (4)];
+// desc: the device table [members (18 ints each) | items (4) | groups (4) | pass-2 items (4)];
 // partial: scratch of the table's partial_len floats; out: (Σ group sizes,) float32
 extern "C" int group_l2_fwd_launch(const void* const* tensors, int n_tensors, const int* desc,
                                    int n_members, int n_items, int n_groups, int n_items2,

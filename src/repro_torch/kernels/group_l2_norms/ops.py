@@ -29,8 +29,16 @@ _group_sq_pallas_bwd``) for every member at once, one kernel launch on
 the card (:func:`segmented_sq_norms_backward`).
 :func:`group_l2_norms` is the single-matrix form, a one-member launch.
 
-Every forward launch counts in ``group_l2_norms.launches`` and, by
-signature, in ``group_l2_norms.shapes``; backward launches in
+A client axis: ``table(signature, clients=C)`` lays out one launch over
+stacked tensors, each the signature's tensor with a leading (C,) axis
+(the vectorized round engine's parameters).  Its output is (C * units,),
+client after client; each client's work items are the one-client items
+shifted, so a client's sums and gradient are the bits of a one-client
+launch on its slice.
+
+Every forward launch counts in ``group_l2_norms.launches`` and, by the
+table's ``key`` (its signature, with C appended for a client axis), in
+``group_l2_norms.shapes``; backward launches in
 ``group_l2_norms.bwd_launches`` and ``.bwd_shapes``.
 """
 from __future__ import annotations
@@ -41,7 +49,7 @@ import functools
 import itertools
 import math
 from collections import Counter
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +57,7 @@ import torch
 from repro_torch.kernels import build
 
 MAX_TENSORS = 240            # the kernel's by-value pointer table (csrc)
+MREC = 18                    # ints per member record (csrc's Member)
 THREADS = 256
 TILE_COLS = 256              # column mode: columns a block covers
 TILE_UNITS = THREADS // 32   # run mode: units a block covers, one a warp
@@ -75,8 +84,9 @@ Signature = Tuple[Tuple[Tuple[Tuple[int, ...], str], ...], Tuple[Member, ...]]
 class Table:
     """One launch's layout, built by :func:`table`."""
     signature: Signature
+    clients: Optional[int]        # C of a client axis, or None
     leaves: List[tuple]           # (shape, torch dtype) per tensor
-    units: int
+    units: int                    # per client
     views: Tuple[Tuple[int, int, int], ...]   # (outer, L, inner) per member
     groups: Tuple[Tuple[int, int, int, int], ...]   # (base, size, m0, m1)
     covered: Tuple[bool, ...]     # per tensor: do its members own all of it
@@ -90,12 +100,26 @@ class Table:
     def members(self) -> Tuple[Member, ...]:
         return self.signature[1]
 
+    @property
+    def key(self):
+        """The launch tally's key: the signature, with C appended for a
+        client axis."""
+        return self.signature if self.clients is None \
+            else self.signature + (self.clients,)
+
+    @property
+    def out_units(self) -> int:
+        """The output's length: units, times C for a client axis."""
+        return self.units * (self.clients or 1)
+
     def member_bytes(self) -> int:
-        """Bytes of every member element, each read once."""
-        return sum(math.prod(self.signature[0][m.tensor][0])
-                   // v[1] * m.size * m.chunk
-                   * getattr(torch, self.signature[0][m.tensor][1]).itemsize
-                   for m, v in zip(self.members, self.views))
+        """Bytes of every member element, each read once (every
+        client's)."""
+        return (self.clients or 1) * sum(
+            math.prod(self.signature[0][m.tensor][0])
+            // v[1] * m.size * m.chunk
+            * getattr(torch, self.signature[0][m.tensor][1]).itemsize
+            for m, v in zip(self.members, self.views))
 
     def on(self, device: torch.device) -> torch.Tensor:
         """The descriptor on ``device``, copied there once."""
@@ -109,12 +133,18 @@ def _view(shape, axis):
 
 
 @functools.lru_cache(maxsize=32)
-def table(signature: Signature) -> Table:
+def table(signature: Signature, clients: Optional[int] = None) -> Table:
     """Validate ``signature`` and lay out its launch: a member record
     per member (the order ``csrc``'s ``Member`` reads), a work item per
     (member, row slab, column or unit tile) of about ITEM_BYTES, a group
     record per run of members with one base, and a pass-2 item per 256
-    units of a group."""
+    units of a group.  With ``clients=C`` the tensors carry a leading
+    (C,) axis and every record is repeated for each client
+    (:func:`_for_clients`)."""
+    if clients is not None:
+        if clients < 1:
+            raise ValueError(f"clients={clients}: want at least 1")
+        return _for_clients(table(signature), clients)
     tensors, members = signature
     if not members:
         raise ValueError("a launch needs at least one member")
@@ -167,7 +197,7 @@ def table(signature: Signature) -> Table:
         nslabs = -(-outer // rows)
         mrec.append([m.tensor, int(dt == "bfloat16"), int(run), int(vec),
                      outer, L * inner, m.offset * inner, R, m.size, m.base,
-                     plen, pstride, pr, nslabs, rows, ncols])
+                     plen, pstride, pr, nslabs, rows, ncols, 0, 0])
         items += [[i, t, s, 0] for s in range(nslabs) for t in tiles]
         plen += nslabs * pstride
     covered = []
@@ -184,11 +214,50 @@ def table(signature: Signature) -> Table:
     desc = np.asarray(list(itertools.chain.from_iterable(
         mrec + items + groups + items2)), np.int32)
     leaves = [(shape, getattr(torch, dt)) for shape, dt in tensors]
-    return Table(signature=signature, leaves=leaves, units=units,
-                 views=tuple(views),
+    return Table(signature=signature, clients=None, leaves=leaves,
+                 units=units, views=tuple(views),
                  groups=tuple(map(tuple, groups)), covered=tuple(covered),
                  desc=desc, counts=(len(mrec), len(items), len(groups),
                                     len(items2)), partial_len=plen)
+
+
+def _for_clients(one: Table, C: int) -> Table:
+    """``one``'s layout repeated for C clients of stacked tensors: copy c
+    of a member reads from element ``c * numel`` of its tensor (numel:
+    one client's elements; a 64-bit offset in record ints 16-17), writes
+    units ``c * units + base`` and partials ``c * partial_len + pbase``;
+    copy c of an item, group or pass-2 item names copy c of its member
+    or group.  16-byte loads need every client's slice aligned, so a
+    member of a tensor whose numel is not a multiple of 4 loses them."""
+    nm, ni, ng, ni2 = one.counts
+    d = one.desc
+    mrec = d[:MREC * nm].reshape(nm, MREC).astype(np.int64)
+    items = d[MREC * nm:MREC * nm + 4 * ni].reshape(ni, 4)
+    groups = d[MREC * nm + 4 * ni:MREC * nm + 4 * (ni + ng)].reshape(ng, 4)
+    items2 = d[MREC * nm + 4 * (ni + ng):].reshape(ni2, 4)
+    numel = np.asarray([math.prod(one.signature[0][t][0])
+                        for t in mrec[:, 0]], np.int64)
+    mrec[:, 3] &= numel % 4 == 0
+    copies = {"m": [], "i": [], "g": [], "i2": []}
+    for c in range(C):
+        m = mrec.copy()
+        m[:, 9] += c * one.units
+        m[:, 10] += c * one.partial_len
+        off = c * numel
+        m[:, 16] = off & 0xFFFFFFFF
+        m[:, 17] = off >> 32
+        copies["m"].append(m.astype(np.uint32).view(np.int32))
+        copies["i"].append(items + np.asarray([c * nm, 0, 0, 0], np.int32))
+        copies["g"].append(groups + np.asarray(
+            [c * one.units, 0, c * nm, c * nm], np.int32))
+        copies["i2"].append(items2 + np.asarray([c * ng, 0, 0, 0], np.int32))
+    desc = np.concatenate([np.concatenate(copies[k]).reshape(-1)
+                           for k in ("m", "i", "g", "i2")])
+    return dataclasses.replace(
+        one, clients=C, desc=desc,
+        leaves=[((C,) + tuple(shape), dt) for shape, dt in one.leaves],
+        counts=(C * nm, C * ni, C * ng, C * ni2),
+        partial_len=C * one.partial_len, _on_device={})
 
 
 def single_table(shape, dtype: str, num_groups: int) -> Table:
@@ -222,7 +291,13 @@ def owned_2d(t: torch.Tensor, m: Member, view) -> torch.Tensor:
 
 def segmented_sq_norms_plain(tensors: Sequence[torch.Tensor],
                              tab: Table) -> torch.Tensor:
-    """Member by member, the members of a group added in order."""
+    """Member by member, the members of a group added in order; with a
+    client axis, client after client."""
+    if tab.clients is not None:
+        one = table(tab.signature)
+        return torch.cat([segmented_sq_norms_plain([t[c] for t in tensors],
+                                                   one)
+                          for c in range(tab.clients)])
     outs = []
     for _, _, m0, m1 in tab.groups:
         acc = None
@@ -245,13 +320,19 @@ def segmented_sq_norms_backward_plain(tensors: Sequence[torch.Tensor],
                                       g: torch.Tensor) -> List[torch.Tensor]:
     """``2 * w * g[unit]`` on every owned element, zero elsewhere."""
     grads = _grads_like(tensors, tab)
-    for m, (outer, L, inner) in zip(tab.members, tab.views):
-        span = m.size * m.chunk
-        dw = grads[m.tensor].view(outer, L, inner).narrow(1, m.offset, span)
-        w = tensors[m.tensor].reshape(outer, L, inner).narrow(1, m.offset,
-                                                              span)
-        gm = g[m.base:m.base + m.size].float().repeat_interleave(m.chunk)
-        dw.copy_(2.0 * w.float() * gm[None, :, None])
+    C = tab.clients
+    for c in range(C or 1):
+        ts = tensors if C is None else [t[c] for t in tensors]
+        gs = grads if C is None else [d[c] for d in grads]
+        gc = g[c * tab.units:(c + 1) * tab.units]
+        for m, (outer, L, inner) in zip(tab.members, tab.views):
+            span = m.size * m.chunk
+            dw = gs[m.tensor].view(outer, L, inner).narrow(1, m.offset, span)
+            w = ts[m.tensor].reshape(outer, L, inner).narrow(1, m.offset,
+                                                             span)
+            gm = gc[m.base:m.base + m.size].float().repeat_interleave(
+                m.chunk)
+            dw.copy_(2.0 * w.float() * gm[None, :, None])
     return grads
 
 
@@ -292,11 +373,12 @@ def _pointers(tensors, tab):
 
 def segmented_sq_norms(tensors: Sequence[torch.Tensor],
                        tab: Table) -> torch.Tensor:
-    """(units,) fp32 per-unit sums of squares of ``tab``'s members."""
+    """(units,) fp32 per-unit sums of squares of ``tab``'s members
+    ((C * units,) with a client axis)."""
     dev = _device_of(tensors, tab)
     if dev.type == "cpu":
         return segmented_sq_norms_plain(tensors, tab)
-    out = torch.empty((tab.units,), dtype=torch.float32, device=dev)
+    out = torch.empty((tab.out_units,), dtype=torch.float32, device=dev)
     partial = torch.empty((max(tab.partial_len, 1),), dtype=torch.float32,
                           device=dev)
     nm, ni, ng, ni2 = tab.counts
@@ -305,7 +387,7 @@ def segmented_sq_norms(tensors: Sequence[torch.Tensor],
         ni2, partial.data_ptr(), out.data_ptr(), build.stream_handle(dev))
     build.check(err, "group_l2_norms")
     group_l2_norms.launches += 1
-    group_l2_norms.shapes[tab.signature] += 1
+    group_l2_norms.shapes[tab.key] += 1
     return out
 
 
@@ -314,8 +396,9 @@ def segmented_sq_norms_backward(tensors: Sequence[torch.Tensor], tab: Table,
     """Each tensor's gradient for the cotangent ``g`` (units,) of
     :func:`segmented_sq_norms`, in the tensor's dtype."""
     dev = _device_of(tensors, tab)
-    if g.shape != (tab.units,):
-        raise ValueError(f"cotangent {tuple(g.shape)} for {tab.units} units")
+    if g.shape != (tab.out_units,):
+        raise ValueError(f"cotangent {tuple(g.shape)} for {tab.out_units} "
+                         f"units")
     if dev.type == "cpu":
         return segmented_sq_norms_backward_plain(tensors, tab, g)
     g = g.to(device=dev, dtype=torch.float32).contiguous()
@@ -326,7 +409,7 @@ def segmented_sq_norms_backward(tensors: Sequence[torch.Tensor], tab: Table,
         tab.on(dev).data_ptr(), nm, ni, g.data_ptr(), build.stream_handle(dev))
     build.check(err, "group_l2_norms backward")
     group_l2_norms.bwd_launches += 1
-    group_l2_norms.bwd_shapes[tab.signature] += 1
+    group_l2_norms.bwd_shapes[tab.key] += 1
     return grads
 
 
@@ -338,9 +421,9 @@ def group_l2_norms(w: torch.Tensor, num_groups: int) -> torch.Tensor:
 
 
 group_l2_norms.launches = 0
-group_l2_norms.shapes = Counter()        # signature -> forward launches
+group_l2_norms.shapes = Counter()        # table key -> forward launches
 group_l2_norms.bwd_launches = 0
-group_l2_norms.bwd_shapes = Counter()    # signature -> backward launches
+group_l2_norms.bwd_shapes = Counter()    # table key -> backward launches
 
 
 class SegmentedSqNorms(torch.autograd.Function):

@@ -100,7 +100,9 @@ def num_norm_groups(c: int, num_groups: int = 32) -> int:
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over NHWC, statistics in fp32, output in x's dtype."""
+    """GroupNorm over NHWC, statistics in fp32, output in x's dtype.
+    Stacked affine (C, c): client c's scale and bias apply to its share
+    of the batch axis (the clients one after another)."""
     dtype = x.dtype
     n, h, w, c = x.shape
     g = num_norm_groups(c, num_groups)
@@ -108,7 +110,12 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var, mu = torch.var_mean(xg, dim=(1, 2, 4), keepdim=True,
                              correction=0)
     xg = (xg - mu) * torch.rsqrt(var + eps)
-    y = xg.reshape(n, h, w, c) * scale + bias
+    if scale.dim() == 1:
+        y = xg.reshape(n, h, w, c) * scale + bias
+    else:
+        C = scale.shape[0]
+        y = (xg.reshape(C, n // C, h, w, c) * scale[:, None, None, None]
+             + bias[:, None, None, None]).reshape(n, h, w, c)
     return y.to(dtype)
 
 

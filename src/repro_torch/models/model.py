@@ -4,7 +4,7 @@ branch serves (``prefill``, ``init_cache``, ``decode``,
 ``reset_cache_slots``)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -30,15 +30,25 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            generator: torch.Generator) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, *,
+            masks: Optional[Dict[str, torch.Tensor]] = None,
+            clients: Optional[int] = None,
+            t: Optional[torch.Tensor] = None,
+            eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The DDPM epsilon loss of one batch (``batch["images"]``), with t
-    and eps drawn from ``generator``.  Training runs the U-Net without
-    dropout, as the reference's loss does (``apply_unet(train=False)``)."""
+    and eps drawn from ``generator`` unless given.  Training runs the
+    U-Net without dropout, as the reference's loss does
+    (``apply_unet(train=False)``).  ``masks``: the sparse-phase prune
+    masks (PruneGroup name -> 0/1 row), applied as masked GEMMs.
+    ``clients=C``: stacked params and C batches one after another; the
+    result is the (C,) per-client losses."""
     _require_unet(cfg)
     x0 = batch["images"]
     schedule = linear_schedule(cfg.diffusion_steps, device=x0.device)
-    return ddpm_loss(lambda x_t, t: apply_unet(params, cfg, x_t, t),
-                     schedule, x0, generator)
+    return ddpm_loss(lambda x_t, tt: apply_unet(params, cfg, x_t, tt,
+                                                masks=masks,
+                                                clients=clients),
+                     schedule, x0, generator, t=t, eps=eps, clients=clients)
 
 
 def prefill(params: Params, cfg: ModelConfig,

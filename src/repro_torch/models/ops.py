@@ -11,6 +11,15 @@ matmul kernel again).  Which version runs
 is decided by the tensors' device alone (see :mod:`repro_torch.kernels`):
 there is no backend option.
 
+Stacked weights: the vectorized round engine trains C clients at once
+on parameters with a leading (C,) axis (a (C, K, N) dense weight, a
+(C, kh, kw, cin, cout) conv weight, a (C, N) bias) and activations whose
+batch axis holds the clients one after another, (C * B, ...).  A
+stacked weight sends its GEMM to the matmul kernel's client axis: one
+launch for all C clients, as the reference's ``vmap`` batches its
+Pallas call.  Such weights take device masks only, shared by every
+client.
+
 Masks come in two types, as in the reference:
 
 - a ``torch.Tensor`` mask is a training-style device mask: the kernel
@@ -119,9 +128,20 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, col_mask: Mask = None,
                   row_mask: Mask = None) -> torch.Tensor:
     """``x @ (w * col_mask[None] * row_mask[:, None])``; x (..., K),
     w (K, N), masks 0/1 vectors (``None`` = all ones).  Host numpy masks
-    take the gather route (module docstring)."""
+    take the gather route (module docstring).  A stacked w (C, K, N)
+    multiplies each client's rows of x (its leading axis holds the C
+    clients one after another) by that client's weight, in one launch."""
     x = _gemm_cast(x, w)
     lead = x.shape[:-1]
+    if w.dim() == 3:
+        if _static_masks(col_mask, row_mask):
+            raise ValueError("stacked weights take device masks, not host "
+                             "numpy ones")
+        x3 = x.reshape(w.shape[0], -1, x.shape[-1]).contiguous()
+        out = bmm.MaskedMatmul.apply(x3, w.contiguous(),
+                                     _device_mask(col_mask, x.device),
+                                     _device_mask(row_mask, x.device))
+        return out.reshape(lead + (w.shape[-1],))
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if _static_masks(col_mask, row_mask):
         out = _masked_matmul_static(x2, w, col_mask, row_mask)
@@ -142,11 +162,22 @@ def _masked_bias(b: torch.Tensor, col_mask: Mask) -> torch.Tensor:
     return b * torch.as_tensor(col_mask, device=b.device).to(b.dtype)
 
 
+def _add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``y + b`` over y's last axis; a stacked bias (C, N) adds client
+    c's row to client c's share of y's leading axis."""
+    if b.dim() == 1:
+        return y + b
+    C = b.shape[0]
+    return (y.reshape((C, -1) + y.shape[1:])
+            + b.reshape((C,) + (1,) * (y.dim() - 1) + b.shape[-1:])
+            ).reshape(y.shape)
+
+
 def dense(p, x: torch.Tensor, *, col_mask: Mask = None) -> torch.Tensor:
     """``x @ p["w"] + p["b"]``; ``col_mask`` prunes output features
-    (weight columns and bias)."""
-    return masked_matmul(x, p["w"], col_mask, None) \
-        + _masked_bias(p["b"], col_mask)
+    (weight columns and bias).  Stacked p: x (C * B, K)."""
+    return _add_bias(masked_matmul(x, p["w"], col_mask, None),
+                     _masked_bias(p["b"], col_mask))
 
 
 def same_pads(size: int, k: int, stride: int):
@@ -162,14 +193,17 @@ def conv(p, x: torch.Tensor, *, stride: int = 1, col_mask: Mask = None,
     """SAME conv on NHWC x with (kh, kw, cin, cout) weights, lowered as
     im2col + GEMM.  ``col_mask`` (cout,) prunes output channels (weight
     columns and bias); ``row_mask`` (cin,) prunes input channels, tiled
-    over the kh*kw patch positions of the im2col K axis."""
+    over the kh*kw patch positions of the im2col K axis.  A stacked
+    weight (C, kh, kw, cin, cout) convolves client c's share of x's batch
+    axis with its own weight (one matmul launch for all C)."""
     w = p["w"]
-    kh, kw, cin, cout = w.shape
+    lead, (kh, kw, cin, cout) = w.shape[:-4], w.shape[-4:]
     bias = _masked_bias(p["b"], col_mask)
     x = _gemm_cast(x, w)
     if kh == kw == 1 and stride == 1:
-        out = masked_matmul(x.reshape(-1, cin), w[0, 0], col_mask, row_mask)
-        return out.reshape(x.shape[:-1] + (cout,)) + bias
+        out = masked_matmul(x.reshape(-1, cin), w[..., 0, 0, :, :], col_mask,
+                            row_mask)
+        return _add_bias(out.reshape(x.shape[:-1] + (cout,)), bias)
     B, H, W = x.shape[:3]
     oh, (ph0, ph1) = same_pads(H, kh, stride)
     ow, (pw0, pw1) = same_pads(W, kw, stride)
@@ -183,8 +217,8 @@ def conv(p, x: torch.Tensor, *, stride: int = 1, col_mask: Mask = None,
         rm = np.tile(row_mask, kh * kw) if is_static_mask(row_mask) \
             else row_mask.repeat(kh * kw)
     y = masked_matmul(patches.reshape(-1, kh * kw * cin),
-                      w.reshape(kh * kw * cin, cout), col_mask, rm)
-    return y.reshape(B, oh, ow, cout) + bias
+                      w.reshape(lead + (kh * kw * cin, cout)), col_mask, rm)
+    return _add_bias(y.reshape(B, oh, ow, cout), bias)
 
 
 # ---------------------------------------------------------------------------

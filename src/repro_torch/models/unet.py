@@ -10,6 +10,13 @@ block runs through :mod:`repro_torch.models.ops`.
 ``apply_unet(..., masks=)`` runs the masked forward: per-group 0/1 masks
 keyed by PruneGroup name are applied as column/row masks on each block's
 GEMMs (host numpy masks take the gather route that serving uses).
+
+``apply_unet(..., clients=C)`` is the stacked forward of the vectorized
+round engine: every parameter leaf has a leading (C,) axis and x holds
+the C clients' batches one after another, (C * B, H, W, ch).  The ops
+see the stacked weights and run each GEMM as one client-batched launch
+(:mod:`repro_torch.models.ops`); attention folds the clients into its
+batch axis.
 """
 from __future__ import annotations
 
@@ -182,10 +189,20 @@ def upsample2x(h: torch.Tensor) -> torch.Tensor:
 
 def apply_unet(params: Params, cfg: ModelConfig, x: torch.Tensor,
                t: torch.Tensor, *,
-               masks: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """Noise prediction eps(x_t, t) for inference.  x: (B, H, W, C) NHWC;
-    t: (B,) integer timesteps.  ``masks``: optional prune masks keyed by
-    PruneGroup name (``make_masks`` output for ``unet_groups``)."""
+               masks: Optional[Dict[str, Any]] = None,
+               clients: Optional[int] = None) -> torch.Tensor:
+    """Noise prediction eps(x_t, t).  x: (B, H, W, C) NHWC; t: (B,)
+    integer timesteps.  ``masks``: optional prune masks keyed by
+    PruneGroup name (``make_masks`` output for ``unet_groups``), shared
+    by every client.  ``clients=C``: stacked params (C, ...) and x, t of
+    C * B rows, client after client (module docstring)."""
+    lead = params["conv_in"]["w"].dim() - 4
+    if (clients is not None) != bool(lead) or (clients is not None and (
+            params["conv_in"]["w"].shape[0] != clients
+            or x.shape[0] % clients)):
+        raise ValueError(f"clients={clients} with conv_in weights "
+                         f"{tuple(params['conv_in']['w'].shape)} and a batch "
+                         f"of {x.shape[0]}")
     mk = (lambda *path: None) if masks is None else \
         (lambda *path: masks.get("/".join(map(str, path))))
 

@@ -1,6 +1,6 @@
 """Nested dict/list parameter trees: the port's stand-in for
 ``jax.tree``.  Leaves are visited in insertion order (dict keys as
-stored, list items in order), the same order in :func:`tree_leaves`,
+stored, list, tuple and NamedTuple items in order), the same order in :func:`tree_leaves`,
 :func:`tree_map` and :func:`tree_unflatten`."""
 from __future__ import annotations
 
@@ -14,8 +14,11 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        items = (tree_map(fn, v, *(r[i] for r in rest))
+                 for i, v in enumerate(tree))
+        if hasattr(tree, "_fields"):                # a NamedTuple
+            return type(tree)(*items)
+        return type(tree)(items)
     return fn(tree, *rest)
 
 

@@ -188,11 +188,11 @@ def test_member_table_cached_per_shape_and_dtype(smoke):
 
 def _records(tab):
     nm, ni, ng, _ = tab.counts
-    d = tab.desc
-    members = d[:16 * nm].reshape(nm, 16)
-    items = d[16 * nm:16 * nm + 4 * ni].reshape(ni, 4)
-    groups = d[16 * nm + 4 * ni:16 * nm + 4 * ni + 4 * ng].reshape(ng, 4)
-    items2 = d[16 * nm + 4 * ni + 4 * ng:].reshape(-1, 4)
+    d, m = tab.desc, gl2.MREC
+    members = d[:m * nm].reshape(nm, m)
+    items = d[m * nm:m * nm + 4 * ni].reshape(ni, 4)
+    groups = d[m * nm + 4 * ni:m * nm + 4 * ni + 4 * ng].reshape(ng, 4)
+    items2 = d[m * nm + 4 * ni + 4 * ng:].reshape(-1, 4)
     return members, items, groups, items2
 
 
@@ -200,7 +200,7 @@ def _item_elements(rec, c0, slab):
     """Flat element indices an item reads, as csrc indexes them:
     (rows, columns) in column mode, (rows, units, run) in run mode."""
     (_, _, run, _, outer, rowstride, start, R, size, _, _, _, _, _, rows,
-     ncols) = rec
+     ncols) = rec[:16]                # ints 16-17: a client's offset, 0
     rr = np.arange(slab * rows, min(slab * rows + rows, outer))
     if not run:
         cols = np.arange(c0, min(c0 + gl2.TILE_COLS, ncols))

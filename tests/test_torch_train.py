@@ -569,7 +569,7 @@ def runs(np_params):
         ref_seen = _record_assignments(ref)
         ref_hist, _ = ref.run()
         port = FedPhD(CFG, FLConfig(**FL_KW), _clients(tdata, tclient),
-                      rng_seed=0, device="cpu")
+                      rng_seed=0, device="cpu", engine="sequential")
         port.params = params_from_jax(np_params, CPU)
         port_seen = _record_assignments(port)
         port_hist, _ = port.run()
@@ -643,7 +643,7 @@ def test_trainer_random_selection_fedavg_matches_jax(monkeypatch):
     ref = JFedPhD(jcfg, JFLConfig(**kw), _clients(jdata, jclient),
                   engine="sequential", **opts)
     port = FedPhD(cfg, FLConfig(**kw), _clients(tdata, tclient),
-                  device="cpu", **opts)
+                  device="cpu", engine="sequential", **opts)
     port.params = params_from_jax(params, CPU)
     seen = (_record_assignments(ref), _record_assignments(port))
     want, _ = ref.run()
@@ -664,7 +664,7 @@ def test_trainer_oneshot_prunes_at_construction(mode):
     sparse."""
     fl = FLConfig(**{**FL_KW, "rounds": 1, "prune_mode": mode})
     tr = FedPhD(CFG, fl, _clients(tdata, tclient, injected=False),
-                device="cpu")
+                device="cpu", engine="sequential")
     assert tr.pruned and tr.step_sparse is None
     kept = sum(k for k, _ in tr.prune_report.values())
     assert kept < sum(n for _, n in tr.prune_report.values())
@@ -676,9 +676,9 @@ def test_trainer_oneshot_prunes_at_construction(mode):
 def test_trainer_same_seed_same_history():
     fl = FLConfig(**{**FL_KW, "rounds": 2})
     a = FedPhD(CFG, fl, _clients(tdata, tclient, injected=False),
-               rng_seed=3, device="cpu")
+               rng_seed=3, device="cpu", engine="sequential")
     b = FedPhD(CFG, fl, _clients(tdata, tclient, injected=False),
-               rng_seed=3, device="cpu")
+               rng_seed=3, device="cpu", engine="sequential")
     ha, _ = a.run()
     hb, _ = b.run()
     assert [h.to_dict() for h in ha] == [h.to_dict() for h in hb]
