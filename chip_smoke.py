@@ -23,9 +23,9 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             model and pruned at 0.44 at its cloud aggregation, round 3
             on the compacted model; 24 local client steps.  The data
             scale, the client count and the rounds are cut; widths and
-            depth are not.  It trains on each engine, three runs a side
+            depth are not.  It trains on each engine, two runs a side
             in turns (sequential, vectorized, ...), fresh clients from
-            the same seeds each run: the first pair here, the other two
+            the same seeds each run: the first pair here, the other
             after phase 8, so that the kernels are timed after the same
             work as before the vectorized engine existed.  The first
             sequential run keeps the
@@ -56,8 +56,28 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             the decode logits after the same 2304 tokens one by one
             (plain ``rglru_decode`` and ring-buffer ``attend``), within
             LM_TOL of max|logit|; 2304 is past the 2048 window;
+7b. experiment  ``repro_torch.experiment.runner.main`` in process with
+            ``--preset paper --eval-every 1``: full-width CIFAR10_UNET,
+            20 clients of 256 cifar10-like images (2 classes each), 2
+            edges, batch 32, cut to EXPERIMENT_ROUNDS rounds (160 client
+            steps a round, all sparse); the round's clients train on the
+            vectorized engine in ``client_chunk``'s chunks, and the eval
+            hook DDIM-samples 64 images in 10 steps for ``is_proxy``.
+            Unbroken, then run for one round and resumed from its
+            checkpoint: the chunk k, the estimate, the peak memory,
+            seconds a round, images/s and each round's ``is_proxy``.
+            Every training matmul launch must be at C = k, attention
+            must run at the chunk's BH and the eval's 64, the resumed
+            history's selections, bytes, params_m and eval keys must
+            equal the unbroken run's, its losses within TRAIN_LOSS_RTOL
+            and params within TRAIN_PARAMS_ATOL (and whether they are
+            bitwise is reported).  One sparse step of two clients under
+            ``torch.use_deterministic_algorithms(True)`` names the ops on
+            the path with no deterministic CUDA kernel (a control,
+            ``torch.histc``, must raise in that mode);
 8. kernels  every kernel against its plain PyTorch version on the card at
-            each shape the serving, training and LM runs launched it with
+            each shape the serving, training, LM and experiment runs
+            launched it with
             (the matmul's backward-dx launches as the backward runs them,
             reading w.T in place), plus masked cases (ratios 0 / 0.44 /
             0.9, a fully masked N-block, a ragged unaligned 1000 x 999 x
@@ -99,11 +119,14 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             work on the step's speed (the sequential training profile's
             post-processing adds ~4 min).
 
+The engine-memory line also gives ``round_bytes``' estimate at each C
+and fails if it is below the measured peak.
+
 Every kernel's counters (``.launches``, the per-shape ``.shapes``, the
 matmul's ``.dx_shapes`` and group-L2's ``.bwd_launches`` and
 ``.bwd_shapes``) are set to 0 just before each serving run, each
-training run and each LM run, and read just after it.  Group-L2 launches
-once per Omega evaluation and once per pruning score: the sequential
+training run, each LM run and each experiment run, and read just after
+it.  Group-L2 launches once per Omega evaluation and once per pruning score: the sequential
 training run must launch it once a sparse step plus once at R_s, the
 vectorized one once a batched sparse step plus once at R_s, the 0.44
 serving run once.
@@ -118,10 +141,11 @@ shape's time (count x time per launch; ``library_ms`` is null where no
 PyTorch call computes the function), ``bound_share`` is bound_ms / ms
 and ``vs_library`` ms / library_ms.  ``paths`` gives the same for every
 run, among them ``train_vectorized`` (the first vectorized training
-run), the matmul's training launches also split into forward and dx;
-group-L2's entry is its forward launches, and ``backward`` (and
-``backward_train_vectorized``) gives its backward kernel's on the
-training runs.
+run) and ``experiment`` (the unbroken paper run), the matmul's launches
+on those and ``train`` also split into forward and dx; group-L2's entry
+is its forward launches, and ``backward`` (and
+``backward_train_vectorized``, ``backward_experiment``) gives its
+backward kernel's on those runs.
 Any failure exits nonzero before the last line.
 """
 from __future__ import annotations
@@ -158,7 +182,9 @@ LM_TOL = 1e-4
 SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
 LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency")
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
-PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS
+# the runs with a backward: the matmul's dx and group-L2's backward
+BACKWARD_PATHS = TRAIN_PATHS + ("experiment",)
+PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + ("experiment",)
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
               "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
 TRAIN_BATCH = 32
@@ -166,7 +192,8 @@ TRAIN_CLIENTS = 4
 TRAIN_LR = 2e-4
 TRAIN_ENGINES = ("sequential", "vectorized")
 # runs a side, the engines in turns: host time drifts 1.3-1.6x in a call
-TRAIN_PAIRS = 3
+# (three until the experiment phase came; cut to keep the script short)
+TRAIN_PAIRS = 2
 # vectorized against sequential (the same draws, other summation orders):
 # each round's loss relative; params within 6 local steps x 2 lr (Adam
 # moves a parameter whose exact gradient is zero by up to lr a step), and
@@ -182,6 +209,12 @@ VECTORIZED_LAUNCHES = {"block_masked_matmul": 1200, "flash_attention": 36,
 # the vectorized engine's peak memory at these client counts (20 is
 # FLConfig's default population at participation 1.0), until one fails
 MEMORY_CLIENTS = (4, 8, 10, 12, 16, 20)
+# the experiment phase: the paper preset, its rounds cut to 2; the eval
+# hook samples EVAL_IMAGES images (runner._default_eval)
+EXPERIMENT_PRESET = "paper"
+EXPERIMENT_ROUNDS = 2
+EXPERIMENT_BATCH = 32
+EVAL_IMAGES = 64
 GRAD_CLIENTS = 4
 GRAD_BATCH = 4
 LM_ARCH = "recurrentgemma-9b"
@@ -1010,21 +1043,29 @@ def engine_memory_phase(cfg, rparams, gen, dev):
     TRAIN_BATCH through ``make_round_engine``, for each C of
     MEMORY_CLIENTS until the first that runs out of memory.  The engine
     holds every client's activations at once, so its peak grows with C;
-    ``FedPhD``'s "auto" does not yet bound C by it (ROADMAP C)."""
+    each C runs unchunked (``max_clients=C``), and the line gives
+    ``round_bytes``' estimate for it beside the measurement, which it
+    must not fall below: ``client_chunk`` sizes the engine's chunks from
+    that estimate."""
     import numpy as np
     import torch
     from repro_torch.configs import FLConfig
     from repro_torch.core.pruning import unet_groups
-    from repro_torch.fl.engine import make_round_engine, stack_trees
+    from repro_torch.fl.engine import (make_round_engine, round_bytes,
+                                       stack_trees)
 
     fcfg = cfg.replace(precision="fp32")
-    engine = make_round_engine(fcfg, FLConfig(), sparse=True,
-                               groups=unet_groups(fcfg, rparams),
-                               lr=TRAIN_LR)
+    groups = unet_groups(fcfg, rparams)
     edge = stack_trees([rparams])
     img = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
     peaks, fits = {}, 0
+    estimates = {C: round_bytes(fcfg, (C, 1) + img, C, edges=1)
+                 for C in MEMORY_CLIENTS}
     for C in MEMORY_CLIENTS:
+        # all C clients in one chunk, past what client_chunk would allow
+        engine = make_round_engine(fcfg, FLConfig(), sparse=True,
+                                   groups=groups, lr=TRAIN_LR,
+                                   max_clients=C)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         try:
@@ -1051,10 +1092,232 @@ def engine_memory_phase(cfg, rparams, gen, dev):
         if len(ran) > 1 else None
     emit("train", run="engine_memory", batch=TRAIN_BATCH, steps=1,
          sparse=True, peak_mem_bytes_by_clients=peaks,
+         estimate_bytes_by_clients=estimates,
          largest_clients_run=fits, bytes_per_client=per_client,
          total_mem_bytes=torch.cuda.get_device_properties(dev).total_memory)
     require(fits >= TRAIN_CLIENTS,
             f"engine memory: {TRAIN_CLIENTS} clients did not fit: {peaks}")
+    require(all(estimates[c] >= peaks[c] for c in ran),
+            f"engine memory: client_chunk's estimate "
+            f"{ {c: estimates[c] for c in ran} } below the measured peak "
+            f"{ {c: peaks[c] for c in ran} }")
+
+
+def experiment_run(argv, dev, counters, zero_counters):
+    """One in-process ``repro_torch.experiment.runner.main`` call, the
+    counters set to 0 just before it and read just after: the
+    experiment, its seconds, peak memory and kernel tallies (as
+    :func:`train_run` keeps them)."""
+    import torch
+    from repro_torch.experiment import runner
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    exp = runner.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
+    tally["block_masked_matmul_dx"] = dict(
+        counters["block_masked_matmul"].dx_shapes)
+    tally["group_l2_norms_bwd"] = dict(counters["group_l2_norms"].bwd_shapes)
+    return dict(exp=exp, wall=wall, tally=tally, base=base,
+                launches={k: fn.launches for k, fn in counters.items()},
+                peak=torch.cuda.max_memory_allocated(dev))
+
+
+def nondeterminism_probe(exp, dev):
+    """The ops on the U-Net's training path with no deterministic CUDA
+    implementation: one sparse vectorized step of two of the
+    experiment's clients (forward, Omega, backward, Adam) under
+    ``torch.use_deterministic_algorithms(True)``, where such an op
+    raises (from the backward's threads too, where a warning would not
+    reach this thread).  Each raise is recorded and the step run again
+    once the op is known: cuBLAS's raises until CUBLAS_WORKSPACE_CONFIG
+    is set (set here for the probe, which silences the check but does
+    not change the workspace of the handles already made), any other op
+    ends the probe.  A control, ``torch.histc`` on the card, must raise.  Run
+    apart from the training runs, because the mode also switches some
+    ops to other algorithms.  Returns ``(raises in order, control's)``."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.engine import draw_round, stack_trees
+
+    tr = exp.trainer
+    eng = tr._engine_sparse or tr._engine_plain
+    img = (EXPERIMENT_BATCH, tr.cfg.image_size, tr.cfg.image_size,
+           tr.cfg.in_channels)
+    gen = torch.Generator(dev)
+    gen.manual_seed(1)
+    valid = np.ones((2, 1), bool)
+    batches = {"images": torch.rand((2, 1) + img, generator=gen,
+                                    device=dev) * 2 - 1}
+    draws = draw_round(gen, valid, img, tr.cfg.diffusion_steps, dev)
+
+    def raised(fn):
+        before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            return str(e).splitlines()[0][:240]
+        finally:
+            torch.use_deterministic_algorithms(before)
+        return None
+
+    control = raised(lambda: torch.histc(torch.rand(64, device=dev),
+                                         bins=4))
+    path, env = [], os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    try:
+        for _ in range(4):
+            msg = raised(lambda: eng(
+                stack_trees([tr.params]), np.zeros(2, np.int64), batches,
+                valid, draws, np.full((1, 2), 0.5, np.float32)))
+            if msg is None:
+                break
+            path.append(msg)
+            if "CUBLAS_WORKSPACE_CONFIG" not in msg \
+                    or os.environ.get("CUBLAS_WORKSPACE_CONFIG"):
+                break
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    finally:
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    return path, control
+
+
+def experiment_phase(dev, counters, zero_counters):
+    """The experiment API on the card (``python -m
+    repro_torch.experiment.runner``, in process): the ``paper`` preset
+    (full-width CIFAR10_UNET, 20 clients of 256 cifar10-like images, 2
+    edges, batch 32) for EXPERIMENT_ROUNDS rounds with the eval hook
+    every round, unbroken; then the same run for one round and resumed
+    from its checkpoint to the last, each into a temporary ``--out``.
+    The round's 20 clients train on the vectorized engine in
+    ``client_chunk``'s chunks.  Returns the unbroken run's tallies."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _experiment_phase(dev, counters, zero_counters, tmp)
+
+
+def _experiment_phase(dev, counters, zero_counters, out_dir):
+    import numpy as np
+    import torch
+    from repro_torch.fl.engine import client_chunk, round_bytes
+    from repro_torch.tree import tree_leaves
+
+    last = str(EXPERIMENT_ROUNDS)
+    whole_dir = os.path.join(out_dir, "whole")
+    back_dir = os.path.join(out_dir, "resumed")
+    base = ["--preset", EXPERIMENT_PRESET, "--eval-every", "1",
+            "--save-every", "0"]
+    whole = experiment_run(base + ["--rounds", last, "--out", whole_dir],
+                           dev, counters, zero_counters)
+    exp = whole["exp"]
+    tr = exp.trainer
+    hist = exp.history
+    C = len(hist[0].selected)
+    S = max(tr.clients[c].data.steps_per_epoch
+            for c in hist[0].selected) * tr.fl.local_epochs
+    shape = (C, S, EXPERIMENT_BATCH, tr.cfg.image_size, tr.cfg.image_size,
+             tr.cfg.in_channels)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    k = client_chunk(tr.cfg, shape, total, edges=tr.fl.num_edges)
+    estimate = round_bytes(tr.cfg, shape, k, edges=tr.fl.num_edges)
+    probe, control = nondeterminism_probe(exp, dev)
+    images = EXPERIMENT_BATCH * sum(tr.clients[c].data.steps_per_epoch
+                                    for h in hist for c in h.selected)
+    params = [p.detach().cpu() for p in tree_leaves(exp.params)]
+    round_s = list(tr.round_seconds)
+    tr_cfg_name = tr.cfg.name
+    del exp, tr, whole["exp"]
+    first = experiment_run(base + ["--rounds", "1", "--out", back_dir],
+                           dev, counters, zero_counters)
+    del first["exp"]
+    back = experiment_run(["--resume", "--rounds", last, "--out", back_dir],
+                          dev, counters, zero_counters)
+    rhist = back["exp"].history
+    rparams = [p.detach().cpu() for p in tree_leaves(back["exp"].params)]
+    rround_s = list(back["exp"].trainer.round_seconds)
+    del back["exp"]
+    torch.cuda.empty_cache()
+
+    tally = whole["tally"]
+    mm_keys = set(tally["block_masked_matmul"])
+    batched = {key for key in mm_keys if len(key) > 5}
+    dx = tally["block_masked_matmul_dx"]
+    att = sorted({key[0] for key in tally["flash_attention"]})
+    l2_clients = sorted({key[2] if len(key) > 2 else 1
+                         for key in tally["group_l2_norms"]})
+    evals = [h.eval for h in hist]
+    loss_rel = [abs(a.loss - b.loss) / abs(a.loss)
+                for a, b in zip(hist, rhist)]
+    diff = max(float((a - b).abs().max()) for a, b in zip(params, rparams))
+    bitwise = all(torch.equal(a, b) for a, b in zip(params, rparams)) \
+        and [h.loss for h in hist] == [h.loss for h in rhist]
+    emit("experiment", preset=EXPERIMENT_PRESET, model=tr_cfg_name,
+         rounds=len(hist), clients=C, steps_per_round=S,
+         batch=EXPERIMENT_BATCH, chunk=k, chunks=-(-C // k),
+         chunk_estimate_bytes=estimate, total_mem_bytes=total,
+         peak_mem_bytes=whole["peak"],
+         peak_mem_bytes_resumed=[first["peak"], back["peak"]],
+         wall_s=whole["wall"], wall_s_per_round=whole["wall"] / len(hist),
+         local_s_by_round=round_s, local_s_by_round_resumed=rround_s,
+         images_per_s=images / sum(round_s),
+         loss=[h.loss for h in hist], loss_resumed=[h.loss for h in rhist],
+         loss_rel_err=loss_rel, is_proxy=[e and e.get("is_proxy")
+                                          for e in evals],
+         is_proxy_resumed=[h.eval and h.eval.get("is_proxy") for h in rhist],
+         comm_gb=[h.comm_gb for h in hist], params_m=[h.params_m
+                                                    for h in hist],
+         max_abs_param_diff_resumed=diff, bitwise_resumed=bitwise,
+         launches=whole["launches"],
+         matmul_clients=sorted({key[5] for key in batched}),
+         matmul_dx=sum(dx.values()), attention_bh=att,
+         group_l2_clients=l2_clients,
+         base_mem_bytes=[whole["base"], first["base"], back["base"]],
+         nondeterministic_ops=probe, nondeterministic_control=control)
+    require(len(hist) == EXPERIMENT_ROUNDS and len(rhist) == len(hist),
+            f"experiment: {len(hist)} and {len(rhist)} rounds")
+    require(all(np.isfinite(h.loss) for h in hist + rhist),
+            "experiment: a loss is not finite")
+    require(all(e is not None and np.isfinite(e["is_proxy"])
+                for e in evals + [h.eval for h in rhist]),
+            f"experiment: an is_proxy eval is missing or not finite: "
+            f"{evals}")
+    require(control is not None, "experiment: the nondeterminism probe's "
+                                 "control, torch.histc on the card, did "
+                                 "not raise")
+    require(whole["peak"] < total and back["peak"] < total,
+            f"experiment: peak {whole['peak']} / {back['peak']} bytes of "
+            f"{total}")
+    require(k < C and C % k == 0, f"experiment: chunk {k} of {C} clients")
+    require(batched and {key[5] for key in batched} == {k}
+            and all(len(key) > 5 and key[5] == k for key in dx),
+            f"experiment: training matmul launches at clients "
+            f"{sorted({key[5] for key in batched})} and dx keys "
+            f"{sorted(dx)[:3]}, want every one at {k}")
+    require(EVAL_IMAGES in att and EXPERIMENT_BATCH * k in att,
+            f"experiment: attention at BH {att}, want the eval's "
+            f"{EVAL_IMAGES} and the chunk's {EXPERIMENT_BATCH * k}")
+    require(l2_clients == [k], f"experiment: group-L2 tables at clients "
+                               f"{l2_clients}, want [{k}]")
+    same = [(h.selected, h.comm_gb, h.comm_up_gb, h.comm_down_gb,
+             h.params_m, sorted(h.eval)) for h in hist]
+    require(same == [(h.selected, h.comm_gb, h.comm_up_gb, h.comm_down_gb,
+                      h.params_m, sorted(h.eval)) for h in rhist],
+            "experiment: the resumed run's selections, bytes, params_m or "
+            "eval keys differ from the unbroken run's")
+    require(max(loss_rel) <= TRAIN_LOSS_RTOL,
+            f"experiment: resumed losses {loss_rel} relative, limit "
+            f"{TRAIN_LOSS_RTOL}")
+    require(diff <= TRAIN_PARAMS_ATOL,
+            f"experiment: resumed params differ by {diff} (limit "
+            f"{TRAIN_PARAMS_ATOL})")
+    return tally
 
 
 def check_vectorized(seq, vec):
@@ -1509,6 +1772,9 @@ def run(out_dir: str, profile: bool = False) -> dict:
         lm_cfg.replace(num_layers=LM_DEPTH, dtype="float32",
                        param_dtype="float32"), dev, counters, zero_counters)
     torch.cuda.empty_cache()
+
+    # -- 4b. the experiment API: the paper preset, run and resumed ---------
+    tallies["experiment"] = experiment_phase(dev, counters, zero_counters)
     require(all(sum(tallies[MAIN_PATHS[k]][k].values()) > 0
                 for k in counters),
             f"a kernel was not launched on its main path: "
@@ -1529,7 +1795,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
         if row.get("key") is not None:
             row["launches"] = {p: tallies[p][row["kernel"]].get(row["key"], 0)
                                for p in PATHS}
-            for p in TRAIN_PATHS:
+            for p in BACKWARD_PATHS:
                 if row["kernel"] == "block_masked_matmul":
                     row["launches"][f"{p}_dx"] = \
                         tallies[p]["block_masked_matmul_dx"].get(row["key"],
@@ -1551,7 +1817,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
         fwd_keys = [k for k in launched("block_masked_matmul")
                     if any(tallies[p]["block_masked_matmul"].get(k, 0)
                            > dx_of[p].get(k, 0) for p in PATHS)]
-        dx_keys = sorted(set(dx_of["train"]) | set(dx_of["train_vectorized"]))
+        dx_keys = sorted(set().union(*(dx_of[p] for p in BACKWARD_PATHS)))
         mm_keys = launched("block_masked_matmul")
         serve_mm = set(launched("block_masked_matmul", ("dense", "pruned")))
         largest = sorted(set(tallies["train"]["block_masked_matmul"])
@@ -1591,6 +1857,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
                                for r in rows),
              train_dx_shapes=len(dx_of["train"]),
              train_vectorized_dx_shapes=len(dx_of["train_vectorized"]),
+             experiment_dx_shapes=len(dx_of["experiment"]),
              bitwise_per_client_cases=sum(
                  r.get("bitwise_per_client") is True for r in rows),
              cases=len(cases), max_abs_err=mm_err, tol_rel=TOL)
@@ -1690,9 +1957,10 @@ def run(out_dir: str, profile: bool = False) -> dict:
             "rglru_scan": scan_err["float32"]}
     for name, err in errs.items():
         paths = {p: path_totals(rows, tallies[p][name]) for p in PATHS
-                 if not (p in TRAIN_PATHS and name == "block_masked_matmul")}
+                 if not (p in BACKWARD_PATHS
+                         and name == "block_masked_matmul")}
         extra = {}
-        for p in TRAIN_PATHS:
+        for p in BACKWARD_PATHS:
             if name == "block_masked_matmul":
                 dx = tallies[p]["block_masked_matmul_dx"]
                 fwd = {k: n - dx.get(k, 0)

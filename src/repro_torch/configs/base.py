@@ -138,12 +138,22 @@ def config_from_dict(d: dict) -> ModelConfig:
     return ModelConfig(**d)
 
 
+def fl_to_dict(fl: "FLConfig") -> dict:
+    return dataclasses.asdict(fl)
+
+
+def fl_from_dict(d: dict) -> "FLConfig":
+    return FLConfig(**d)
+
+
 @dataclass(frozen=True)
 class FLConfig:
     """Federated-learning / FedPhD hyper-parameters (paper §V-A).  The
-    reference's baseline knobs (``fedprox_mu``, ``moon_mu``, ``moon_tau``)
-    and its ``seed`` come with the baselines; the trainer's seed is
-    ``FedPhD(rng_seed=...)``."""
+    baseline knobs (``fedprox_mu``, ``moon_mu``, ``moon_tau``) and
+    ``seed`` are carried so that a spec of either package round-trips
+    key for key; no ported trainer reads them (the baselines are
+    ROADMAP A.9; FedPhD's seed is ``FedPhD(rng_seed=...)``, which the
+    experiment API sets from ``ExperimentSpec.seed``)."""
     num_clients: int = 20                # N
     num_edges: int = 2                   # N_e
     participation: float = 1.0           # kappa
@@ -159,3 +169,8 @@ class FLConfig:
     prune_ratio: float = 0.44            # s_p
     prune_mode: str = "group_norm"       # "group_norm" | "oneshot_random" | "oneshot_l2"
     lambda0: float = 1e-4                # group-lasso base scale (eq 17)
+    # baseline knobs
+    fedprox_mu: float = 1.0
+    moon_mu: float = 1.0
+    moon_tau: float = 0.5
+    seed: int = 0

@@ -22,18 +22,30 @@ the round's clients in one client-batched step a batch, one loss sync a
 round) or the sequential one (a client at a time, one step a batch).
 Both consume the generator's draws in the same order.
 
-Not ported yet: meshes, fault injection and staleness, quantized
-uplinks, tracing, the eval hook and checkpoint state.
+``eval_fn(params, cfg, round)`` runs every ``eval_every`` rounds after
+the round's record is appended, its result in ``RoundRecord.eval``.
+``state()`` and ``restore()`` carry everything the trajectory depends
+on, in the reference's keys and layout, so a checkpoint crosses between
+the packages both ways; the port adds the generator's state
+(``torch_rng``), the one stream that cannot cross.  A resumed run is
+bitwise equal to an unbroken one on the CPU.
+
+Not ported yet, and refused: meshes (ROADMAP A.13), fault injection and
+staleness, quantized uplinks (A.10); tracing (A.11) is refused by the
+experiment API.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+import warnings
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.configs.base import (FLConfig, ModelConfig,
+                                      config_from_dict, config_to_dict)
+from repro_torch.convert import params_from_jax
 from repro_torch.core.aggregation import (aggregate_fedavg, aggregate_sh,
                                           fedavg_weights, normalize_weights,
                                           sh_weights)
@@ -47,18 +59,27 @@ from repro_torch.device import resolve_device
 from repro_torch.experiment.resolve import resolve_engine, resolve_precision
 from repro_torch.fl.client import Client, make_local_step, run_local
 from repro_torch.fl.comm import CommModel
-from repro_torch.fl.engine import (draw_round, make_round_engine,
-                                   resolve_store, route_engine,
-                                   stack_trees, stacked_adam_init,
-                                   store_tree, tree_gather, tree_scatter)
-from repro_torch.fl.compress import downlink_bytes, uplink_bytes
-from repro_torch.fl.record import RoundRecord, RunResult
+from repro_torch.fl.engine import (adam_stack_from_tree, draw_round,
+                                   make_round_engine, resolve_store,
+                                   route_engine, stack_trees,
+                                   stacked_adam_init, store_tree,
+                                   tree_gather, tree_scatter)
+from repro_torch.fl.compress import QUANTS, downlink_bytes, uplink_bytes
+from repro_torch.fl.record import RoundRecord, RunResult, evals_of
 from repro_torch.models import model
 from repro_torch.optim import adam_init
 from repro_torch.tree import tree_leaves, tree_map
 
 SELECTIONS = ("sh", "random")
 AGGREGATIONS = ("sh", "fedavg")
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """The uint32 pair ``jax.random.PRNGKey(seed)`` holds with JAX's
+    default 32-bit integers: 0 and the seed's low 32 bits.  ``state()``
+    saves it as ``rng``, so the reference can load the port's
+    checkpoint."""
+    return np.asarray([0, seed & 0xFFFFFFFF], np.uint32)
 
 
 class FedPhD:
@@ -81,6 +102,11 @@ class FedPhD:
     state_store: where that state lives: "device", "host" (numpy; only
     the round's rows move to the device) or "auto"
     (:func:`repro_torch.fl.engine.resolve_store`).
+    eval_fn/eval_every: ``eval_fn(params, cfg, round)`` is called every
+    ``eval_every`` rounds and its result stored in ``RoundRecord.eval``.
+    mesh, fault, quant: the reference's; anything but None, a disabled
+    fault spec and "none" raises NotImplementedError (ROADMAP A.13,
+    A.10).
     """
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, clients: List[Client],
@@ -88,7 +114,21 @@ class FedPhD:
                  aggregation: str = "sh", prune: bool = True,
                  lr: float = 2e-4, engine: Optional[str] = None,
                  persistent_opt: bool = False, state_store: str = "auto",
+                 mesh=None, eval_fn: Optional[Callable] = None,
+                 eval_every: int = 0, fault=None, quant: str = "none",
                  device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("FedPhD(mesh=...): the mesh-sharded "
+                                      "client axis is ROADMAP A.13")
+        if fault is not None and fault.enabled:
+            raise NotImplementedError("FedPhD(fault=...): fault injection "
+                                      "and staleness are ROADMAP A.10")
+        if quant not in QUANTS:
+            raise ValueError(f"unknown quant {quant!r}; expected one of "
+                             f"{QUANTS}")
+        if quant != "none":
+            raise NotImplementedError(f"FedPhD(quant={quant!r}): the "
+                                      f"quantized uplink is ROADMAP A.10")
         if selection not in SELECTIONS:
             raise ValueError(f"selection {selection!r} not in {SELECTIONS}")
         if aggregation not in AGGREGATIONS:
@@ -108,6 +148,9 @@ class FedPhD:
         self._store = resolve_store(
             state_store, len(clients),
             max(1, round(fl.participation * len(clients))))
+        self.eval_fn = eval_fn
+        self.eval_every = eval_every
+        self.rng_seed = rng_seed
         self.np_rng = np.random.default_rng(rng_seed)
         self.gen = torch.Generator(self.device)
         self.gen.manual_seed(rng_seed)
@@ -356,6 +399,7 @@ class FedPhD:
         return {"round": r, "losses": round_losses,
                 "up_bytes": up_bytes, "down_bytes": down_bytes,
                 "sel_ids": sel_ids, "pruned": pruned_this_round,
+                "params": self.params, "cfg": self.cfg,
                 "params_m": self._param_count_m(),
                 "edge_sh": [e.sh(self.q_u) for e in self.edges]}
 
@@ -371,13 +415,97 @@ class FedPhD:
             selected=[int(c) for c in pend["sel_ids"]],
             edge_sh=pend["edge_sh"],
             pruned=pend["pruned"])
+        # appended before the eval hook: the round ran and the streams
+        # advanced, so a raising eval_fn loses the eval, not the round
         self.history.append(rec)
+        r = pend["round"]
+        if self.eval_fn and self.eval_every and r % self.eval_every == 0:
+            rec.eval = self.eval_fn(pend["params"], pend["cfg"], r)
         return rec
 
-    def run(self, rounds: Optional[int] = None) -> RunResult:
+    def run(self, rounds: Optional[int] = None, *,
+            eval_every: Optional[int] = None) -> RunResult:
         """Run rounds ``len(history)+1 .. rounds`` (default
-        ``fl.rounds``)."""
+        ``fl.rounds``; after ``restore`` the run continues).
+        ``eval_every`` replaces the trainer's cadence."""
         rounds = rounds or self.fl.rounds
+        if eval_every is not None:
+            self.eval_every = eval_every
         for r in range(len(self.history) + 1, rounds + 1):
             self.run_round(r)
-        return RunResult(self.history, [])
+        return RunResult(self.history, evals_of(self.history))
+
+    # -- checkpoint state (the experiment API's resume contract) -------------
+    def state(self):
+        """``(arrays, meta)``: a tree for ``repro_torch.checkpoint.save``
+        and JSON-serializable metadata, in the reference's keys
+        (``repro/core/hfl.py:state``).  ``rng`` is the key
+        ``jax.random.PRNGKey(rng_seed)`` holds, so the reference loads
+        the file; the model-noise stream itself is the generator's
+        state, ``torch_rng`` (read by the port only)."""
+        arrays = {
+            "params": self.params,
+            "rng": prng_key(self.rng_seed),
+            "opt_stack": self._opt_stack,
+            "edge_models": None if self._edge_models is None else
+            {str(e): m for e, m in self._edge_models.items()},
+            "edge_counts": np.stack([e.counts for e in self.edges]),
+            "edge_n": np.asarray([e.n for e in self.edges], np.int64),
+            "late_buf": None,
+            "err_stack": None,
+            "torch_rng": self.gen.get_state().numpy(),
+        }
+        meta = {
+            "trainer": "fedphd",
+            "pruned": bool(self.pruned),
+            "cfg": config_to_dict(self.cfg),
+            "np_rng": self.np_rng.bit_generator.state,
+            "client_rngs": [cl.data.rng_state() for cl in self.clients],
+            "history": [rec.to_dict() for rec in self.history],
+            "fault": None,
+            "torch_rng_device": self.gen.device.type,
+        }
+        return arrays, meta
+
+    def restore(self, arrays, meta) -> None:
+        """Inverse of ``state()`` on a trainer built with the same
+        arguments (config, FL config, clients, seed).  A checkpoint of
+        the reference has no generator state: the generator stays as
+        construction left it, with a warning.  A generator state saved
+        on another device type raises."""
+        saved = meta.get("torch_rng_device")
+        if saved is not None and saved != self.gen.device.type:
+            raise RuntimeError(
+                f"the checkpoint's generator state is a {saved!r} "
+                f"generator's and this trainer's is "
+                f"{self.gen.device.type!r}: the two draw different "
+                f"streams; resume on a {saved!r} device")
+        cfg = config_from_dict(meta["cfg"])
+        self.cfg = cfg.replace(precision=resolve_precision(cfg.precision))
+        self.pruned = bool(meta["pruned"])
+        self.params = params_from_jax(arrays["params"], self.device)
+        self.groups = unet_groups(self.cfg, self.params)
+        self._edge_models = None if arrays.get("edge_models") is None else \
+            {int(e): params_from_jax(m, self.device)
+             for e, m in arrays["edge_models"].items()}
+        for i, e in enumerate(self.edges):
+            e.counts = np.asarray(arrays["edge_counts"][i],
+                                  np.float64).copy()
+            e.n = int(arrays["edge_n"][i])
+        self.np_rng.bit_generator.state = meta["np_rng"]
+        for cl, st in zip(self.clients, meta["client_rngs"]):
+            cl.data.set_rng_state(st)
+        if arrays.get("torch_rng") is not None:
+            self.gen.set_state(torch.from_numpy(
+                np.asarray(arrays["torch_rng"], np.uint8)))
+        else:
+            warnings.warn("the checkpoint carries no torch generator "
+                          "state (the JAX package wrote it): the model "
+                          "noise stream continues from this trainer's "
+                          "seed, not from the checkpoint",
+                          RuntimeWarning)
+        self.history = [RoundRecord.from_dict(d) for d in meta["history"]]
+        self._rebuild_steps()
+        if self.persistent_opt:
+            self._opt_stack = adam_stack_from_tree(
+                arrays["opt_stack"], self._store, self.device)

@@ -1,5 +1,5 @@
-"""Pruning masks from scores, and the kept indices compaction takes
-(``repro/core/pruning/masks.py``).
+"""Pruning masks from scores, the kept indices compaction takes, and
+the masks applied as zeroed weights (``repro/core/pruning/masks.py``).
 
 Kept channel counts are rounded to multiples of 8 (128 once a group is
 at least 1024 wide); head/expert units are not rounded.
@@ -10,7 +10,7 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.core.pruning.groups import PruneGroup
+from repro_torch.core.pruning.groups import PruneGroup, get_path, set_path
 
 
 def alignment_for(g: PruneGroup) -> int:
@@ -48,3 +48,46 @@ def keep_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
     """Sorted indices of the kept units of a (size,) mask."""
     idx = torch.argsort(-mask, dim=-1, stable=True)[..., :k]
     return torch.sort(idx, dim=-1).values
+
+
+def _mask_vector(mask_row: torch.Tensor, m, dim: int) -> torch.Tensor:
+    """A (size,) mask as a (dim,) multiplier for one member's axis: each
+    unit's chunk at the member's offset, ones elsewhere."""
+    full = torch.ones((dim,), dtype=torch.float32, device=mask_row.device)
+    rep = torch.repeat_interleave(mask_row.float(), m.chunk)
+    full[m.offset:m.offset + rep.shape[0]] = rep
+    return full
+
+
+def apply_masks(params, groups: List[PruneGroup],
+                masks: Dict[str, torch.Tensor]):
+    """Zero the pruned units' slices (the shape-stable sparse-training
+    form): a new tree, ``params`` unchanged."""
+    for g in groups:
+        mask = torch.as_tensor(masks[g.name])
+        for m in g.members:
+            p = get_path(params, m.path)
+            axis = m.axis + (1 if g.stacked else 0)
+            dim = p.shape[axis]
+            shape = [1] * p.dim()
+            shape[axis] = dim
+            if g.stacked:
+                vec = torch.stack([_mask_vector(row.to(p.device), m, dim)
+                                   for row in mask])
+                shape[0] = mask.shape[0]
+            else:
+                vec = _mask_vector(mask.to(p.device), m, dim)
+            params = set_path(params, m.path,
+                              p * vec.reshape(shape).to(p.dtype))
+    return params
+
+
+def sparsity_report(groups: List[PruneGroup],
+                    masks: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
+    """Group name -> (kept units, size); a stacked group reports its
+    first cycle."""
+    out = {}
+    for g in groups:
+        m = torch.as_tensor(masks[g.name])
+        out[g.name] = (int(torch.sum(m[0] if g.stacked else m)), g.size)
+    return out

@@ -27,6 +27,15 @@ class ClientData:
     def __len__(self) -> int:
         return len(self.images)
 
+    # The shuffle stream advances once an epoch the client trains, so a
+    # resumed run must carry it to stay bitwise.
+    def rng_state(self) -> dict:
+        """The shuffle stream's bit-generator state (JSON-serializable)."""
+        return self._rng.bit_generator.state
+
+    def set_rng_state(self, state: dict) -> None:
+        self._rng.bit_generator.state = state
+
     def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
         """Full batches of one shuffled pass; a ragged tail is dropped."""
         idx = self._rng.permutation(len(self.images))

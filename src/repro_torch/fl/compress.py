@@ -8,6 +8,8 @@ from typing import Tuple
 
 from repro_torch.tree import tree_leaves
 
+# the reference's uplink dtypes; only "none" is ported (ROADMAP A.10)
+QUANTS = ("none", "int8", "fp8")
 _PRECISION_BYTES = {"": 4, "fp32": 4, "bf16": 2}
 
 

@@ -18,6 +18,13 @@ kernels are ctypes launches, which ``torch.func.vmap`` cannot batch):
                 the client's old rows, so padding is a bitwise no-op)
     edge agg -> the fused (E, C) weight-matrix contraction per leaf
 
+A round's clients train in consecutive chunks of at most k clients
+(:func:`client_chunk`: k from the config, the batch shape, the precision
+and the card's total memory, so every run of one configuration makes
+the same cut; k = C on the CPU).  Each chunk takes one client-batched
+step a batch; the trained models land in one (C, ...) stack for the
+(E, C) aggregation.
+
 The per-client losses come back in one host sync a round.  The engine
 closes over the same loss as the sequential step
 (:func:`repro_torch.fl.client.make_loss_fn`), and the round's DDPM t and
@@ -227,8 +234,18 @@ def make_train_one(loss_fn, *, lr: float = 2e-4):
     (``torch.where`` on the client axis): padding is a bitwise no-op.
     A step with no padding selects nothing.  (The reference's ``masked``
     flag picks one of two static XLA programs; this loop reads the mask
-    at every step, so it needs no flag.)"""
-    def train_one(params, opt_state, batches, valid, draws):
+    at every step, so it needs no flag.)
+
+    ``train_one.steps(start, batches, valid, draws)`` is the same loop
+    without the sync, for a caller that trains several chunks of clients
+    and syncs once (:func:`client_means`): ``start()`` returns the
+    initial ``(params, opt_state)``, so that the loop holds the only
+    reference to them and each step's inputs are freed as the next
+    begins (held by a caller, they would add three model copies a
+    client to every step after the first); it returns the (C, S) step
+    losses on the device."""
+    def steps(start, batches, valid, draws):
+        params, opt_state = start()
         C, S = valid.shape
         t_all, eps_all = draws
         device = t_all.device
@@ -256,19 +273,180 @@ def make_train_one(loss_fn, *, lr: float = 2e-4):
                 new_o = tree_map(sel, new_o, opt_state)
             params, opt_state = new_p, new_o
             step_losses.append(losses.detach())
-        # the round's one host sync; each client's mean over its real
-        # steps, as the sequential engine takes it
-        per_step = torch.stack(step_losses, dim=1).cpu().double().numpy()
-        losses = np.asarray([np.mean(row[ok]) if ok.any() else 0.0
-                             for row, ok in zip(per_step, valid)])
-        return params, opt_state, losses
+        return params, opt_state, torch.stack(step_losses, dim=1)
 
+    def train_one(params, opt_state, batches, valid, draws):
+        params, opt_state, per_step = steps(lambda: (params, opt_state),
+                                            batches, valid, draws)
+        return params, opt_state, client_means(per_step, valid)
+
+    train_one.steps = steps
     return train_one
+
+
+def client_means(per_step: torch.Tensor, valid: np.ndarray) -> np.ndarray:
+    """The (C,) float64 mean of each client's real steps' losses, as the
+    sequential engine takes it, from one host sync of the (C, S) device
+    losses."""
+    per_step = per_step.cpu().double().numpy()
+    return np.asarray([np.mean(row[ok]) if ok.any() else 0.0
+                       for row, ok in zip(per_step, valid)])
+
+
+# ---------------------------------------------------------------------------
+# client chunks: how many clients one batched step holds
+# ---------------------------------------------------------------------------
+
+# The memory model of one chunk, fitted to the vectorized engine's peak
+# for one sparse step of full-width CIFAR10_UNET in fp32 at batch 32
+# (chip_smoke.py's engine_memory line on an H100 80GB HBM3 at 700 W:
+# 26.61 GB at C = 4, 52.85 at 8, 66.00 at 10, 79.18 at 12, so 6.57 GB a
+# client and 0.32 GB besides).
+#
+# A client's state beside its activations, in copies of its fp32
+# parameters: the parameters, their gradients, Adam's two moments, and
+# the new parameters and moments a step writes before the old ones go.
+STATE_COPIES = 8
+# Bytes the backward keeps a sample, as a share of the activation
+# elements :func:`unet_elems` counts times the compute
+# dtype's size: 0.9 x 4 B x 48,671,232 elements x 32 + 8 x 143 MB is
+# 6.75 GB a client, 2.6% above the 6.57 measured.
+ACT_SHARE = 0.9
+# Of the card's total memory, the share a round may plan to allocate:
+# the CUDA context and the caching allocator's slack take the rest.
+USABLE_SHARE = 0.9
+_DTYPE_BYTES = {"fp32": 4, "bf16": 2}
+
+
+def unet_elems(cfg: ModelConfig) -> Tuple[int, int]:
+    """``(parameters, activation elements a sample)`` of ``cfg``'s dense
+    U-Net, by walking
+    :func:`repro_torch.models.unet.init_unet`'s structure.  The
+    activation count sums, for every conv, its im2col operand and its
+    output; for every GroupNorm and SiLU, input and output; for every
+    attention block, its q, k, v and output and the S x S scores the
+    backward recomputes; and the skip concatenations."""
+    ch, temb = cfg.base_channels, 4 * cfg.base_channels
+    n = {"p": ch * temb + temb + temb * temb + temb, "a": 0}
+
+    def conv(k, cin, cout, hw):
+        n["p"] += k * k * cin * cout + cout
+        n["a"] += (k * k * cin + cout) * hw
+
+    def norm(c, hw):
+        n["p"] += 2 * c
+        n["a"] += 2 * c * hw
+
+    def res(cin, cout, hw):
+        norm(cin, hw)
+        conv(3, cin, cout, hw)
+        n["p"] += temb * cout + cout
+        norm(cout, hw)
+        conv(3, cout, cout, hw)
+        if cin != cout:
+            conv(1, cin, cout, hw)
+        n["a"] += cout * hw
+
+    def attn(c, hw):
+        norm(c, hw)
+        conv(1, c, 3 * c, hw)
+        conv(1, c, c, hw)
+        n["a"] += 2 * c * hw + 2 * hw * hw
+
+    r = cfg.image_size
+    conv(3, cfg.in_channels, ch, r * r)
+    chans, cur = [ch], ch
+    for lvl, mult in enumerate(cfg.channel_mults):
+        for _ in range(cfg.num_res_blocks):
+            res(cur, ch * mult, r * r)
+            cur = ch * mult
+            if r in cfg.attn_resolutions:
+                attn(cur, r * r)
+            chans.append(cur)
+        if lvl != len(cfg.channel_mults) - 1:
+            r //= 2
+            conv(3, cur, cur, r * r)
+            chans.append(cur)
+    res(cur, cur, r * r)
+    attn(cur, r * r)
+    res(cur, cur, r * r)
+    for lvl, mult in reversed(list(enumerate(cfg.channel_mults))):
+        for _ in range(cfg.num_res_blocks + 1):
+            skip = chans.pop()
+            n["a"] += (cur + skip) * r * r
+            res(cur + skip, ch * mult, r * r)
+            cur = ch * mult
+            if r in cfg.attn_resolutions:
+                attn(cur, r * r)
+        if lvl != 0:
+            r *= 2
+            n["a"] += cur * r * r
+            conv(3, cur, cur, r * r)
+    norm(ch, r * r)
+    conv(3, ch, cfg.in_channels, r * r)
+    return n["p"], n["a"]
+
+
+def round_bytes(cfg: ModelConfig, batch_shape, k: int, *, edges: int = 1,
+                opt_rows: bool = False) -> int:
+    """The estimated peak bytes of a round whose images stack as
+    ``batch_shape`` (C, S, B, H, W, ch), trained in chunks of ``k``
+    clients: every client's fp32 model in the trained stack, the E edge
+    models twice (the trainer's and the engine's stack) and the global
+    model, the round's images and eps, with ``opt_rows`` the C clients'
+    persistent Adam rows in and out; and the chunk's k clients' state
+    and activations (module constants)."""
+    C, B = int(batch_shape[0]), int(batch_shape[2])
+    params, acts = unet_elems(cfg)
+    p_bytes = 4 * params
+    data = 2 * 4 * int(np.prod(batch_shape))
+    models = 2 * edges + 1 + C + (4 * C if opt_rows else 0)
+    fixed = models * p_bytes + data
+    dtype = _DTYPE_BYTES[cfg.precision or "fp32"]
+    per_client = STATE_COPIES * p_bytes + ACT_SHARE * dtype * B * acts
+    return int(fixed + k * per_client)
+
+
+def client_chunk(cfg: ModelConfig, batch_shape, total_memory: int, *,
+                 edges: int = 1, opt_rows: bool = False) -> int:
+    """The chunk size k for a round whose images stack as ``batch_shape``
+    (C, S, B, H, W, ch) on a card of ``total_memory`` bytes: the fewest
+    chunks whose :func:`round_bytes` fits USABLE_SHARE of the card, cut
+    as evenly as they go (C = 20 at a largest fit of 12 is 10 + 10), so
+    every chunk runs one matmul plan and one group-L2 table.  It reads
+    the card's total memory, never its free memory, so a resumed run
+    makes the same cut.  Raises MemoryError, with the numbers, when one
+    client does not fit."""
+    C = int(batch_shape[0])
+    budget = USABLE_SHARE * total_memory
+    fits = [k for k in range(1, C + 1)
+            if round_bytes(cfg, batch_shape, k, edges=edges,
+                           opt_rows=opt_rows) <= budget]
+    if not fits:
+        need = round_bytes(cfg, batch_shape, 1, edges=edges,
+                           opt_rows=opt_rows)
+        raise MemoryError(
+            f"one client of {cfg.name} at batch shape {tuple(batch_shape)}"
+            f" ({cfg.precision or 'fp32'}) needs an estimated {need:,} "
+            f"bytes with {C} clients' models kept; the card's "
+            f"{total_memory:,} bytes allow {int(budget):,} "
+            f"(USABLE_SHARE {USABLE_SHARE}); pass engine='sequential'")
+    chunks = -(-C // max(fits))
+    return -(-C // chunks)
+
+
+def chunk_bounds(C: int, k: int):
+    """``[(a, b), ...]``: C clients in ceil(C / k) consecutive chunks of
+    sizes that differ by at most one (``np.array_split``'s cut)."""
+    n = -(-C // k)
+    sizes = [C // n + (i < C % n) for i in range(n)]
+    ends = np.cumsum([0] + sizes)
+    return [(int(a), int(b)) for a, b in zip(ends, ends[1:])]
 
 
 def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                       sparse: bool = False, groups=None, lr: float = 2e-4,
-                      prune_masks=None):
+                      prune_masks=None, max_clients: Optional[int] = None):
     """The vectorized round for FedPhD's clients.
 
     ``sparse`` with ``groups`` adds Omega to the loss (one client-axis
@@ -292,7 +470,12 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
     and the result is a dict: ``"agg"``, the edge-aggregated models with a
     leading (E,) axis (fp32 sums, integer leaves rounded); ``"losses"``,
     the (C,) host mean losses; ``"opt"``, the updated Adam rows (when
-    ``opt_states`` was given)."""
+    ``opt_states`` was given).
+
+    The clients train in chunks (:func:`client_chunk` on a CUDA device,
+    all C at once on the CPU); ``max_clients`` replaces that choice with
+    chunks of at most ``max_clients`` (tests, and the memory probe of
+    ``chip_smoke.py``)."""
     loss_fn = make_loss_fn(cfg, fl, sparse=sparse, groups=groups,
                            prune_masks=prune_masks)
     train_one = make_train_one(loss_fn, lr=lr)
@@ -300,18 +483,54 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
     def engine(edge_params, edge_idx, batches, valid, draws, w_mat,
                opt_states=None):
         device = tree_leaves(edge_params)[0].device
-        idx = torch.as_tensor(np.asarray(edge_idx), device=device)
-        start = tree_map(lambda leaf: leaf[idx], edge_params)
         C = valid.shape[0]
-        if opt_states is not None:
-            opt0 = opt_states
-        else:                           # every client starts from zeros
+        if max_clients is not None:
+            k = min(max_clients, C)
+        elif device.type == "cuda":
+            k = client_chunk(
+                cfg, tuple(batches["images"].shape),
+                torch.cuda.get_device_properties(device).total_memory,
+                edges=tree_leaves(edge_params)[0].shape[0],
+                opt_rows=opt_states is not None)
+        else:
+            k = C
+        bounds = chunk_bounds(C, k)
+        edge_idx = np.asarray(edge_idx)
+        t_all, eps_all = draws
+        trained = opt_out = None
+        step_losses = []
+
+        def start(a, b):
+            idx = torch.as_tensor(edge_idx[a:b], device=device)
+            params = tree_map(lambda leaf: leaf[idx], edge_params)
+            if opt_states is not None:
+                return params, tree_map(lambda x: x[a:b], opt_states)
             zeros = lambda x: torch.zeros_like(x, dtype=torch.float32)
-            opt0 = AdamState(
-                step=torch.zeros((C,), dtype=torch.int32, device=device),
-                mu=tree_map(zeros, start), nu=tree_map(zeros, start))
-        trained, opt_out, losses = train_one(start, opt0, batches, valid,
-                                             draws)
+            return params, AdamState(          # every client from zeros
+                step=torch.zeros((b - a,), dtype=torch.int32, device=device),
+                mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+        for a, b in bounds:
+            p, o, losses = train_one.steps(
+                lambda: start(a, b), {n: v[a:b] for n, v in batches.items()},
+                valid[a:b], (t_all[a:b], eps_all[a:b]))
+            step_losses.append(losses)
+            if len(bounds) == 1:
+                trained, opt_out = p, o
+                continue
+            # one preallocated (C, ...) stack, each chunk written in
+            # place, so the round never holds a second copy of C models
+            if trained is None:
+                trained = tree_map(
+                    lambda x: x.new_empty((C,) + tuple(x.shape[1:])), p)
+                if opt_states is not None:
+                    opt_out = tree_map(
+                        lambda x: x.new_empty((C,) + tuple(x.shape[1:])), o)
+            tree_map(lambda dst, src: dst[a:b].copy_(src), trained, p)
+            if opt_states is not None:
+                tree_map(lambda dst, src: dst[a:b].copy_(src), opt_out, o)
+            del p, o
+        losses = client_means(torch.cat(step_losses), valid)
         out = {"agg": weighted_average_stacked(trained, w_mat),
                "losses": losses}
         if opt_states is not None:
