@@ -75,9 +75,29 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             ``torch.use_deterministic_algorithms(True)`` names the ops on
             the path with no deterministic CUDA kernel (a control,
             ``torch.histc``, must raise in that mode);
+7c. baselines  the flat baselines (FedAvg, FedProx, MOON, SCAFFOLD,
+            FedDiffuse) through the experiment API on the ``train``
+            cell's data (4 clients of 2 classes, 32 images a class) and
+            full-width CIFAR10_UNET in fp32 at batch 32: each method 2
+            rounds on the vectorized engine (round 2 reading what round 1
+            stored): finite losses, ``comm_gb`` equal to a count of the
+            bytes its method sends, local seconds and images/s a round,
+            peak memory, and exactly the matmul and attention launches
+            of its forwards (MOON: 2 with a backward, and the global
+            model's one-client forward over the chunk's images and the
+            previous models' stacked one without); ``baselines_engines``
+            one round of each on the sequential engine against the
+            vectorized run's first (losses within TRAIN_LOSS_RTOL,
+            params and method state within TRAIN_PARAMS_ATOL, SCAFFOLD's
+            variates in parameter units, ``comm_gb`` identical);
+            ``baselines_resume`` ``runner --method`` scaffold and moon
+            killed after round 1 and resumed, bit for bit against the
+            unbroken run (params, method stacks, losses); and
+            ``centralized``, 8 steps of ``run_centralized`` with the EMA,
+            which must equal the EMA recomputed here in fp32;
 8. kernels  every kernel against its plain PyTorch version on the card at
-            each shape the serving, training, LM and experiment runs
-            launched it with
+            each shape the serving, training, LM, experiment and
+            baselines runs launched it with
             (the matmul's backward-dx launches as the backward runs them,
             reading w.T in place), plus masked cases (ratios 0 / 0.44 /
             0.9, a fully masked N-block, a ragged unaligned 1000 x 999 x
@@ -120,13 +140,18 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             post-processing adds ~4 min).
 
 The engine-memory line also gives ``round_bytes``' estimate at each C
-and fails if it is below the measured peak.
+and fails if it is below the measured peak.  After it,
+``baselines_memory`` runs one round of MOON and of SCAFFOLD over the
+paper preset's 20 clients (one step each) in chunks of the k
+``client_chunk`` picks for the paper preset, the 20-row method state on
+the card: its peak, less what was allocated before, must not exceed the
+method's estimate.
 
 Every kernel's counters (``.launches``, the per-shape ``.shapes``, the
 matmul's ``.dx_shapes`` and group-L2's ``.bwd_launches`` and
 ``.bwd_shapes``) are set to 0 just before each serving run, each
-training run, each LM run and each experiment run, and read just after
-it.  Group-L2 launches once per Omega evaluation and once per pruning score: the sequential
+training run, each LM run, each experiment run and each baselines run,
+and read just after it.  Group-L2 launches once per Omega evaluation and once per pruning score: the sequential
 training run must launch it once a sparse step plus once at R_s, the
 vectorized one once a batched sparse step plus once at R_s, the 0.44
 serving run once.
@@ -141,8 +166,9 @@ shape's time (count x time per launch; ``library_ms`` is null where no
 PyTorch call computes the function), ``bound_share`` is bound_ms / ms
 and ``vs_library`` ms / library_ms.  ``paths`` gives the same for every
 run, among them ``train_vectorized`` (the first vectorized training
-run) and ``experiment`` (the unbroken paper run), the matmul's launches
-on those and ``train`` also split into forward and dx; group-L2's entry
+run), ``experiment`` (the unbroken paper run) and ``baselines`` (every
+run of phase 7c), the matmul's launches on those and ``train`` also
+split into forward and dx; group-L2's entry
 is its forward launches, and ``backward`` (and
 ``backward_train_vectorized``, ``backward_experiment``) gives its
 backward kernel's on those runs.
@@ -183,8 +209,9 @@ SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
 LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency")
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
-BACKWARD_PATHS = TRAIN_PATHS + ("experiment",)
-PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + ("experiment",)
+BACKWARD_PATHS = TRAIN_PATHS + ("experiment", "baselines")
+PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + ("experiment",
+                                                        "baselines")
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
               "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
 TRAIN_BATCH = 32
@@ -222,6 +249,27 @@ LM_BATCH, LM_SEQ, LM_TIMED = 2, 4096, 3
 LM_SERVE = dict(slots=8, requests=16, max_tokens=32, cache_len=4096)
 LM_DEPTH, LM_CONSISTENCY_SEQ = 5, 2304
 LM_PROFILE_STEPS = 8
+# phase 7c, the flat baselines: the train cell's data at full width
+BASELINE_METHODS = ("fedavg", "fedprox", "moon", "scaffold", "feddiffuse")
+BASELINE_ROUNDS = 2
+BASELINE_DATASET = "cifar10-like-320"
+BASELINE_RESUMED = ("scaffold", "moon")
+BASELINE_MEMORY_METHODS = ("moon", "scaffold")
+# FedDiffuse's shared half (repro_torch.fl.baselines._SHARED_KEYS_UNET)
+BASELINE_SHARED = ("conv_in", "temb1", "temb2", "down", "mid")
+# a local step's U-Net forwards (with a backward, without): MOON adds
+# the trained model's feature forward and the global and previous
+# models' no-grad ones; every other method makes one with a backward
+BASELINE_FORWARDS = {"moon": (2, 2)}
+# one CIFAR10_UNET forward's launches: its 101 GEMMs, the 99 dx of its
+# backward (all but conv_in's and temb1's, whose inputs need no
+# gradient), and its 6 attention blocks
+U_NET_GEMMS = (101, 99)
+U_NET_ATTENTION = 6
+IMAGE = (32, 32, 3)
+# the paper preset's round (20 clients, 8 steps each), for the chunk size
+PAPER_CLIENTS, PAPER_STEPS = 20, 8
+CENTRAL_STEPS = 8
 TPU_KERNELS = {
     "block_masked_matmul":
         "src/repro/kernels/block_masked_matmul/block_masked_matmul.py:43",
@@ -688,6 +736,24 @@ def add_totals(a, b):
     return shares(out)
 
 
+def tally_of(counters):
+    """A run's kernel tallies: kernel -> {shape key: launches}, with the
+    matmul's dx launches under "block_masked_matmul_dx" and group-L2's
+    backward under "group_l2_norms_bwd"."""
+    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
+    tally["block_masked_matmul_dx"] = dict(
+        counters["block_masked_matmul"].dx_shapes)
+    tally["group_l2_norms_bwd"] = dict(counters["group_l2_norms"].bwd_shapes)
+    return tally
+
+
+def merge_tally(into, tally):
+    for kernel, shapes in tally.items():
+        dst = into.setdefault(kernel, {})
+        for key, n in shapes.items():
+            dst[key] = dst.get(key, 0) + n
+
+
 # ---------------------------------------------------------------------------
 # phases 5-7: RecurrentGemma serving
 # ---------------------------------------------------------------------------
@@ -900,10 +966,7 @@ def train_run(cfg, dev, engine, counters, zero_counters):
             omega = (gl2.launches, gl2.bwd_launches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
-    tally["block_masked_matmul_dx"] = dict(
-        counters["block_masked_matmul"].dx_shapes)
-    tally["group_l2_norms_bwd"] = dict(counters["group_l2_norms"].bwd_shapes)
+    tally = tally_of(counters)
     if engine == "sequential":
         st = trainer.step_seconds
         round_s = [sum(st[a:b]) for a, b in zip(ends, ends[1:])]
@@ -1120,10 +1183,7 @@ def experiment_run(argv, dev, counters, zero_counters):
     exp = runner.main(argv + ["--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
-    tally["block_masked_matmul_dx"] = dict(
-        counters["block_masked_matmul"].dx_shapes)
-    tally["group_l2_norms_bwd"] = dict(counters["group_l2_norms"].bwd_shapes)
+    tally = tally_of(counters)
     return dict(exp=exp, wall=wall, tally=tally, base=base,
                 launches={k: fn.launches for k, fn in counters.items()},
                 peak=torch.cuda.max_memory_allocated(dev))
@@ -1378,6 +1438,358 @@ def check_vectorized(seq, vec):
                 if k in launches),
             f"train vectorized: per-shape tallies do not add up to "
             f"{launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the flat baselines and centralized training
+# ---------------------------------------------------------------------------
+
+def register_baseline_data():
+    """The ``train`` cell's data as a dataset the experiment API can
+    name: 320 CIFAR-10-like images (32 a class), which
+    ``make_clients`` splits over 4 clients of 2 classes as
+    :func:`make_trainer` does."""
+    from repro_torch.data import CIFAR10_LIKE
+    from repro_torch.experiment.data import register_dataset
+    register_dataset(BASELINE_DATASET, dataclasses.replace(
+        CIFAR10_LIKE, samples_per_class=32), overwrite=True)
+
+
+def baseline_spec(method, engine):
+    """The ``baselines`` cell: ``method`` on full-width CIFAR10_UNET in
+    fp32, the ``train`` cell's 4 clients, batch 32, BASELINE_ROUNDS
+    rounds on ``engine``."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.experiment.spec import DataSpec, ExperimentSpec
+    return ExperimentSpec(
+        name="baselines", method=method, model="ddpm-unet-cifar10",
+        fl=FLConfig(num_clients=TRAIN_CLIENTS, local_epochs=1,
+                    rounds=BASELINE_ROUNDS),
+        data=DataSpec(dataset=BASELINE_DATASET, classes_per_client=2,
+                      batch_size=TRAIN_BATCH),
+        engine=engine, precision="fp32", lr=TRAIN_LR, seed=0)
+
+
+def method_state(tr):
+    """CPU copies of a flat trainer's global model and method state:
+    name -> leaves."""
+    from repro_torch.tree import tree_leaves
+    out = {"params": tr.params}
+    for name, attr in (("c_global", "c_global"),
+                       ("c_local", "_c_local_stack"),
+                       ("prev", "_prev_stack"), ("local", "_local_stack")):
+        if getattr(tr, attr) is not None:
+            out[name] = getattr(tr, attr)
+    # copies: the stacks are written in place by the next round
+    return {k: [x.detach().to("cpu", copy=True) for x in tree_leaves(v)]
+            for k, v in out.items()}
+
+
+def baseline_run(method, engine, rounds, dev, counters, zero_counters):
+    """``method`` for ``rounds`` rounds of the ``baselines`` cell through
+    ``Experiment``, the counters set to 0 just before it and read just
+    after: the history, the method state after each round, kernel
+    tallies, launches, local seconds a round and peak memory."""
+    import torch
+    from repro_torch.experiment.run import Experiment
+    from repro_torch.tree import tree_leaves
+
+    exp = Experiment(baseline_spec(method, engine), device=dev)
+    tr = exp.trainer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    states = []
+    for r in range(1, rounds + 1):
+        exp.run(r)
+        states.append(method_state(tr))
+    torch.cuda.synchronize()
+    local_s = list(tr.round_seconds) if engine == "vectorized" else [
+        sum(tr.step_seconds)]
+    return dict(hist=list(exp.history), states=states,
+                tally=tally_of(counters), local_s=local_s,
+                launches={k: fn.launches for k, fn in counters.items()},
+                peak=torch.cuda.max_memory_allocated(dev), comm=tr.comm,
+                images=TRAIN_BATCH * sum(
+                    tr.clients[c].data.steps_per_epoch
+                    for c in exp.history[0].selected),
+                batched_steps=max(tr.clients[c].data.steps_per_epoch
+                                  for c in exp.history[0].selected),
+                shared=sum(p.numel() for k, v in tr.params.items()
+                           if k in BASELINE_SHARED for p in tree_leaves(v)),
+                n_params=sum(p.numel() for p in tree_leaves(tr.params)))
+
+
+def state_diff(a, b, scale=None):
+    """max |a - b| of each state entry of two :func:`method_state`s;
+    ``scale`` multiplies the control variates' (SCAFFOLD's K lr: their
+    change is (x - y) / (K lr), so this puts them in parameter units)."""
+    out = {}
+    for k in a:
+        d = max(float((x - y).abs().max()) for x, y in zip(a[k], b[k],
+                                                          strict=True))
+        out[k] = d * scale if scale and k.startswith("c_") else d
+    return out
+
+
+def baselines_phase(dev, counters, zero_counters):
+    """The five flat baselines on the card.  ``baselines``: each runs
+    BASELINE_ROUNDS rounds of the cell on the vectorized engine (round 2
+    reads the state round 1 wrote): finite losses, ``comm_gb`` a round
+    equal to an analytic count of the bytes its method sends, local
+    seconds and images/s a round, peak memory, and exactly the matmul
+    and attention launches its local steps' forwards make.
+    ``baselines_engines``: one round of each on the sequential engine
+    against the vectorized run's first round.  ``baselines_resume``:
+    ``runner --method`` for BASELINE_RESUMED, killed after round 1 and
+    resumed, against the unbroken vectorized run, bit for bit.  Returns
+    the tally of every launch the three made."""
+    import numpy as np
+    import torch
+    from repro_torch.experiment import runner
+
+    register_baseline_data()
+    tally, runs = {}, {}
+    for m in BASELINE_METHODS:
+        run = baseline_run(m, "vectorized", BASELINE_ROUNDS, dev, counters,
+                           zero_counters)
+        runs[m] = run
+        merge_tally(tally, run["tally"])
+        hist, launches = run["hist"], run["launches"]
+        grad_fw, nograd_fw = BASELINE_FORWARDS.get(m, (1, 0))
+        steps = BASELINE_ROUNDS * run["batched_steps"]
+        fwd, dx = U_NET_GEMMS
+        want = {"block_masked_matmul":
+                steps * (grad_fw * (fwd + dx) + nograd_fw * fwd),
+                "flash_attention": steps * (grad_fw + nograd_fw)
+                * U_NET_ATTENTION}
+        mm = run["tally"]["block_masked_matmul"]
+        one_client = sorted(key for key in mm if len(key) == 5)
+        clients = sorted({key[5] for key in mm if len(key) > 5})
+        # the bytes the method sends, counted here from the parameters:
+        # fp32 up and down (FedDiffuse the shared half only), SCAFFOLD
+        # its fp32 control variates both ways besides
+        sent = run["shared"] if m == "feddiffuse" else run["n_params"]
+        per_transfer = 4 * sent * (2 if m == "scaffold" else 1)
+        C = len(hist[0].selected)
+        comm = 2 * C * run["comm"].edge_cloud(per_transfer) / 1e9
+        emit("baselines", method=m, engine="vectorized",
+             rounds=len(hist), clients=C, batch=TRAIN_BATCH,
+             loss=[h.loss for h in hist], comm_gb=[h.comm_gb for h in hist],
+             comm_gb_counted=comm, params_m=[h.params_m for h in hist],
+             local_s_by_round=run["local_s"],
+             images_per_s_by_round=[run["images"] / s
+                                    for s in run["local_s"]],
+             peak_mem_bytes=run["peak"], launches=launches,
+             launches_want=want, matmul_clients=clients,
+             one_client_matmul_keys=len(one_client),
+             global_forward_m=sorted({key[0] for key in one_client}),
+             batched_steps=steps)
+        require(len(hist) == BASELINE_ROUNDS
+                and all(np.isfinite(h.loss) for h in hist),
+                f"baselines {m}: losses {[h.loss for h in hist]}")
+        require(all(h.comm_gb == comm for h in hist),
+                f"baselines {m}: comm_gb {[h.comm_gb for h in hist]}, "
+                f"counted {comm}")
+        require(all(launches[k] == n for k, n in want.items()),
+                f"baselines {m}: launches {launches}, want {want}")
+        require(clients == [C], f"baselines {m}: batched matmul launches "
+                                f"at clients {clients}, want [{C}]")
+        # MOON's global model: one unstacked forward over all the chunk's
+        # images, never C copies of it
+        hw = IMAGE[0] * IMAGE[1]
+        require((m == "moon") == bool(one_client) and (
+            m != "moon" or (C * TRAIN_BATCH * hw, 27, 128, False,
+                            "float32") in mm),
+                f"baselines {m}: one-client matmul keys {one_client[:3]}")
+
+    for m in BASELINE_METHODS:
+        seq = baseline_run(m, "sequential", 1, dev, counters, zero_counters)
+        merge_tally(tally, seq["tally"])
+        vec = runs[m]
+        a, b = vec["hist"][0], seq["hist"][0]
+        rel = abs(a.loss - b.loss) / abs(b.loss)
+        diff = state_diff(vec["states"][0], seq["states"][0],
+                          scale=vec["batched_steps"] * TRAIN_LR)
+        emit("baselines_engines", method=m, loss_vectorized=a.loss,
+             loss_sequential=b.loss, loss_rel_err=rel,
+             loss_rtol=TRAIN_LOSS_RTOL, max_abs_diff=diff,
+             atol=TRAIN_PARAMS_ATOL, comm_gb=[a.comm_gb, b.comm_gb],
+             local_s=[vec["local_s"][0], seq["local_s"][0]],
+             images_per_s=[vec["images"] / vec["local_s"][0],
+                           seq["images"] / seq["local_s"][0]],
+             peak_mem_bytes=[vec["peak"], seq["peak"]])
+        require(rel <= TRAIN_LOSS_RTOL,
+                f"baselines_engines {m}: loss {rel} relative")
+        require(all(d <= TRAIN_PARAMS_ATOL for d in diff.values()),
+                f"baselines_engines {m}: state differs by {diff}")
+        require((a.selected, a.comm_gb, a.comm_up_gb, a.comm_down_gb,
+                 a.params_m) == (b.selected, b.comm_gb, b.comm_up_gb,
+                                 b.comm_down_gb, b.params_m),
+                f"baselines_engines {m}: selections or bytes differ")
+
+    last = str(BASELINE_ROUNDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        for m in BASELINE_RESUMED:
+            spec_path = os.path.join(tmp, f"{m}.json")
+            with open(spec_path, "w") as f:
+                f.write(baseline_spec(m, "vectorized").to_json())
+            out = os.path.join(tmp, m)
+            zero_counters()
+            t0 = time.perf_counter()
+            runner.main(["--spec", spec_path, "--rounds", "1", "--out", out,
+                         "--device", dev.type])
+            back = runner.main(["--out", out, "--resume", "--rounds", last,
+                                "--device", dev.type])
+            wall = time.perf_counter() - t0
+            merge_tally(tally, tally_of(counters))
+            whole, state = runs[m], method_state(back.trainer)
+            equal = {k: all(torch.equal(x, y) for x, y in zip(
+                whole["states"][-1][k], state[k], strict=True))
+                for k in state}
+            losses = [h.loss for h in back.history]
+            emit("baselines_resume", method=m, rounds=len(losses),
+                 loss=losses, loss_unbroken=[h.loss for h in whole["hist"]],
+                 bitwise=equal, wall_s=wall,
+                 ckpt_bytes=os.path.getsize(os.path.join(out, "ckpt.npz")))
+            require(all(equal.values())
+                    and losses == [h.loss for h in whole["hist"]],
+                    f"baselines_resume {m}: not bitwise: {equal}, losses "
+                    f"{losses}")
+            del back
+    return tally
+
+
+def baselines_memory_phase(dev):
+    """For BASELINE_MEMORY_METHODS: the paper preset's round (20 clients,
+    batch 32) cut to one step a client, so that its one round is one
+    batched step a chunk, in chunks of the k ``client_chunk`` picks for
+    the paper preset's 8 steps a client, with the trainer's 20-row method
+    state on the card.  The round's peak, less what was allocated before
+    the trainer, must not exceed ``round_bytes``' estimate for that
+    round, nor the peak the card."""
+    import torch
+    from repro_torch.configs import CIFAR10_UNET, FLConfig
+    from repro_torch.data import (CIFAR10_LIKE, ClientData, make_dataset,
+                                  shards_per_client)
+    from repro_torch.fl.baselines import FlatTrainer
+    from repro_torch.fl.client import Client
+    from repro_torch.fl.engine import (client_chunk, make_round_engine,
+                                       round_bytes)
+    from repro_torch.kernels.block_masked_matmul import ops as bmm
+
+    cfg = CIFAR10_UNET.replace(precision="fp32")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    ds = dataclasses.replace(CIFAR10_LIKE, samples_per_class=64)
+    images, labels = make_dataset(ds, seed=0)
+    parts = shards_per_client(labels, PAPER_CLIENTS, 2, seed=0)
+    img = (TRAIN_BATCH,) + IMAGE
+    for m in BASELINE_MEMORY_METHODS:
+        clients = [Client(i, ClientData(images[p], labels[p],
+                                        batch_size=TRAIN_BATCH, seed=i),
+                          ds.num_classes) for i, p in enumerate(parts)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fl = FLConfig(num_clients=PAPER_CLIENTS, rounds=1)
+        tr = FlatTrainer(m, cfg, fl, clients, lr=TRAIN_LR,
+                         engine="vectorized", device=dev)
+        stored = tr._stored_copies()
+        k = client_chunk(cfg, (PAPER_CLIENTS, PAPER_STEPS) + img, total,
+                         method=m, stored=stored)
+        # one step a client would fit more clients a chunk: hold the
+        # engine to the paper preset's k
+        tr._round_engine = make_round_engine(cfg, fl, method=m, lr=TRAIN_LR,
+                                             max_clients=k)
+        shape = (PAPER_CLIENTS, 1) + img
+        estimate = round_bytes(cfg, shape, k, method=m, stored=stored)
+        bmm.block_masked_matmul.shapes.clear()
+        t0 = time.perf_counter()
+        tr.run(1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        chunks = sorted({key[5] for key in bmm.block_masked_matmul.shapes
+                         if len(key) > 5})
+        emit("baselines_memory", method=m, clients=PAPER_CLIENTS,
+             steps_per_client=1, chunk=k, chunk_clients=chunks,
+             stored_copies=stored, estimate_bytes=estimate,
+             peak_mem_bytes=peak, base_mem_bytes=base,
+             total_mem_bytes=total, loss=tr.history[0].loss,
+             round_s=seconds)
+        del tr, clients
+        torch.cuda.empty_cache()
+        require(chunks and max(chunks) == k,
+                f"baselines_memory {m}: chunks at {chunks}, want k = {k}")
+        require(peak - base <= estimate,
+                f"baselines_memory {m}: peak {peak} less {base} above the "
+                f"estimate {estimate}")
+        require(peak < total, f"baselines_memory {m}: peak {peak} of "
+                              f"{total}")
+
+
+def centralized_phase(dev):
+    """``run_centralized`` at full width: CENTRAL_STEPS steps at batch 32
+    on the ``train`` cell's 320 images with the EMA.  The EMA is
+    recomputed here from every step's params, in fp32 with the formula
+    written out (it must equal the returned params bit for bit) and in
+    float64 (reported)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import CIFAR10_UNET
+    from repro_torch.data import CIFAR10_LIKE, make_dataset
+    from repro_torch.fl import baselines
+    from repro_torch.tree import tree_leaves
+
+    images, _ = make_dataset(dataclasses.replace(CIFAR10_LIKE,
+                                                 samples_per_class=32),
+                             seed=0)
+    mine = {}
+    real_init, real_update = baselines.ema_init, baselines.ema_update
+
+    def record_init(params):
+        mine["fp32"] = [p.detach().float().clone()
+                        for p in tree_leaves(params)]
+        mine["fp64"] = [p.detach().double() for p in tree_leaves(params)]
+        mine["updates"] = 0
+        return real_init(params)
+
+    def record_update(ema, params, decay):
+        ps = tree_leaves(params)
+        mine["fp32"] = [decay * e + (1.0 - decay) * p.float()
+                        for e, p in zip(mine["fp32"], ps)]
+        mine["fp64"] = [decay * e + (1.0 - decay) * p.double()
+                        for e, p in zip(mine["fp64"], ps)]
+        mine["updates"] += 1
+        return real_update(ema, params, decay)
+
+    baselines.ema_init, baselines.ema_update = record_init, record_update
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = baselines.run_centralized(
+            CIFAR10_UNET.replace(precision="fp32"), images,
+            steps=CENTRAL_STEPS, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+            device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        baselines.ema_init, baselines.ema_update = real_init, real_update
+    got = tree_leaves(params)
+    equal = all(torch.equal(a, b) for a, b in zip(got, mine["fp32"],
+                                                  strict=True))
+    d64 = max(float((a.double() - b).abs().max())
+              for a, b in zip(got, mine["fp64"]))
+    emit("centralized", steps=len(losses), batch=TRAIN_BATCH, loss=losses,
+         ema_updates=mine["updates"], ema_bitwise_fp32=equal,
+         ema_max_abs_diff_fp64=d64, seconds=seconds,
+         images_per_s=TRAIN_BATCH * len(losses) / seconds)
+    require(len(losses) == CENTRAL_STEPS and np.all(np.isfinite(losses)),
+            f"centralized: losses {losses}")
+    require(mine["updates"] == CENTRAL_STEPS and equal,
+            f"centralized: the EMA differs from its recomputation "
+            f"({mine['updates']} updates, fp64 diff {d64})")
 
 
 # kernel-name fragments -> category, for the profile's device-time split
@@ -1775,6 +2187,10 @@ def run(out_dir: str, profile: bool = False) -> dict:
 
     # -- 4b. the experiment API: the paper preset, run and resumed ---------
     tallies["experiment"] = experiment_phase(dev, counters, zero_counters)
+
+    # -- 7c. the flat baselines on both engines, resumed; centralized ------
+    tallies["baselines"] = baselines_phase(dev, counters, zero_counters)
+    centralized_phase(dev)
     require(all(sum(tallies[MAIN_PATHS[k]][k].values()) > 0
                 for k in counters),
             f"a kernel was not launched on its main path: "
@@ -1912,6 +2328,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
     train_timing_phase(cfg, dev, counters, zero_counters, train_runs)
     del train_runs
     engine_memory_phase(cfg, rparams, gen, dev)
+    baselines_memory_phase(dev)
 
     # -- 9. full-width forward: kernels vs plain versions --------------------
     # The plain forward runs on CPU copies: device dispatch picks the plain

@@ -1,10 +1,13 @@
 """Checkpointing: nested dict/list tree <-> flat npz with a structure
 manifest.
 
-The format is the reference package's, byte for byte: a checkpoint
-written by either package loads in the other.  Leaves may be numpy
-arrays or torch tensors (saved as numpy, so float32 and integer types
-only); :func:`load` returns numpy leaves.
+The format is the reference package's (the same npz member names and
+manifest), except that the port stores the members uncompressed: a
+checkpoint written by either package loads in the other, since
+``np.load`` reads both.  fp32 weights compress little and zlib is slow
+on them: compressing a flat baseline's (N, ...) method state (SCAFFOLD's
+c_i, MOON's previous models) took longer than its training.  Leaves may be numpy arrays or torch tensors (saved as numpy, so float32
+and integer types only); :func:`load` returns numpy leaves.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ def _structure(tree) -> Any:
 def save(path: str, tree, metadata: Dict[str, Any] | None = None) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = _flatten(tree)
-    np.savez_compressed(path, **{k: v for k, v in flat.items()})
+    np.savez(path, **flat)
     manifest = {"structure": _structure(tree), "metadata": metadata or {}}
     with open(path + ".manifest.json", "w") as f:
         json.dump(manifest, f)

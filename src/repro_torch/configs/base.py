@@ -148,12 +148,12 @@ def fl_from_dict(d: dict) -> "FLConfig":
 
 @dataclass(frozen=True)
 class FLConfig:
-    """Federated-learning / FedPhD hyper-parameters (paper §V-A).  The
-    baseline knobs (``fedprox_mu``, ``moon_mu``, ``moon_tau``) and
-    ``seed`` are carried so that a spec of either package round-trips
-    key for key; no ported trainer reads them (the baselines are
-    ROADMAP A.9; FedPhD's seed is ``FedPhD(rng_seed=...)``, which the
-    experiment API sets from ``ExperimentSpec.seed``)."""
+    """Federated-learning / FedPhD hyper-parameters (paper §V-A) and the
+    flat baselines' knobs (``fedprox_mu``, ``moon_mu``, ``moon_tau``,
+    read by :mod:`repro_torch.fl.client`).  ``seed`` is carried so that a
+    spec of either package round-trips key for key; no trainer reads it
+    (a trainer's seed is its ``rng_seed``, which the experiment API sets
+    from ``ExperimentSpec.seed``)."""
     num_clients: int = 20                # N
     num_edges: int = 2                   # N_e
     participation: float = 1.0           # kappa

@@ -1,5 +1,6 @@
-"""Model aggregation (``repro/core/aggregation.py``): FedAvg weighting
-and FedPhD's homogeneity-aware weighting (paper Eqs. 21-24).
+"""Model aggregation (``repro/core/aggregation.py``): FedAvg weighting,
+FedPhD's homogeneity-aware weighting (paper Eqs. 21-24) and the uniform
+weights of SCAFFOLD's control-variate mean.
 
 The weights are host numpy; the weighted sums run on the parameters'
 device, one stacked fp32 contraction per leaf, identical at the edge and
@@ -51,6 +52,12 @@ def weighted_average(param_trees: Sequence, weights: Sequence[float]):
     wt = torch.from_numpy(w).to(tree_leaves(param_trees[0])[0].device)
     return tree_map(lambda *leaves: combine_leaf(torch.stack(leaves), wt),
                     *param_trees)
+
+
+def uniform_weights(n: int) -> np.ndarray:
+    """Unnormalized equal weights; ``normalize_weights`` makes them
+    exactly 1/n (SCAFFOLD's unweighted control-variate mean)."""
+    return np.ones(n)
 
 
 def fedavg_weights(sample_counts: Sequence[int]) -> np.ndarray:

@@ -13,9 +13,11 @@ A factory returns an object of the
 :class:`repro_torch.experiment.trainer.Trainer` protocol.  The port's
 factories take the device the trainer runs on as a fifth argument.
 
-The built-ins are the hierarchical ``fedphd`` and ``fedphd-os``.  The
-reference's other methods are not ported yet; asking for one raises and
-names the ROADMAP item that brings it.
+The built-ins are the hierarchical ``fedphd`` and ``fedphd-os`` and the
+flat baselines ``fedavg``, ``fedprox``, ``moon``, ``scaffold`` and
+``feddiffuse`` (:class:`repro_torch.fl.baselines.FlatTrainer`).  The
+reference's staleness variants are not ported yet; asking for one raises
+and names the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -29,9 +31,7 @@ TrainerFactory = Callable  # (spec, cfg, clients, eval_fn, device) -> Trainer
 
 # the reference's methods that wait for a later item
 UNPORTED = {
-    **{m: "A.9 (flat baselines)" for m in ("fedavg", "fedprox", "moon",
-                                           "scaffold", "feddiffuse")},
-    "fedavg-stale": "A.9 and A.10 (flat baselines, staleness)",
+    "fedavg-stale": "A.10 (faults and staleness aggregation)",
     "fedphd-stale": "A.10 (faults and staleness aggregation)",
 }
 
@@ -110,3 +110,21 @@ def _fedphd_factory(prune_mode: str = "") -> TrainerFactory:
 register_method("fedphd", "hierarchical", _fedphd_factory())
 # FedPhD-OS: one-shot L2 pruning at r = 0 instead of sparse-train rounds
 register_method("fedphd-os", "hierarchical", _fedphd_factory("oneshot_l2"))
+
+
+def _flat_factory(method: str) -> TrainerFactory:
+    def make(spec: ExperimentSpec, cfg, clients, eval_fn, device):
+        from repro_torch.fl.baselines import FlatTrainer
+        return FlatTrainer(method, cfg, spec.fl, clients, lr=spec.lr,
+                           rng_seed=spec.seed, engine=spec.engine,
+                           persistent_opt=spec.persistent_opt,
+                           state_store=spec.state_store, mesh=spec.mesh,
+                           eval_fn=eval_fn, eval_every=spec.eval_every,
+                           fault=spec.fault, quant=spec.comm.quant,
+                           device=device)
+    return make
+
+
+# the paper's Table II baselines (repro_torch.fl.baselines.FLAT_METHODS)
+for _m in ("fedavg", "fedprox", "feddiffuse", "moon", "scaffold"):
+    register_method(_m, "flat", _flat_factory(_m))

@@ -1,4 +1,5 @@
-"""The vectorized round engine (``repro/fl/engine.py``), FedPhD's method.
+"""The vectorized round engine (``repro/fl/engine.py``), for FedPhD and
+the flat baselines (FedAvg, FedProx, MOON, SCAFFOLD, FedDiffuse).
 
 The sequential engine (:func:`repro_torch.fl.client.run_local` driven by
 :mod:`repro_torch.core.hfl`) trains one client after another, one step
@@ -16,7 +17,14 @@ kernels are ctypes launches, which ``torch.func.vmap`` cannot batch):
     batches  -> a Python loop over the round's (S,) steps
                 (``stack_round`` pads ragged clients; a padded step keeps
                 the client's old rows, so padding is a bitwise no-op)
-    edge agg -> the fused (E, C) weight-matrix contraction per leaf
+    ctx      -> the method's anchors (``CTX_AXES``: 0 = per-client
+                (C, ...) rows, sliced with the chunk; None = one copy
+                every client reads): FedProx's and MOON's global model,
+                MOON's previous local models, SCAFFOLD's control
+                variates, FedDiffuse's local (never sent) decoder rows
+    edge agg -> the fused (E, C) weight-matrix contraction per leaf (the
+                flat baselines are the E = 1 case)
+    scaffold -> the c_i+ rows and the uniform mean of their change
 
 A round's clients train in consecutive chunks of at most k clients
 (:func:`client_chunk`: k from the config, the batch shape, the precision
@@ -46,10 +54,24 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig
-from repro_torch.core.aggregation import weighted_average_stacked
-from repro_torch.fl.client import make_loss_fn
+from repro_torch.core.aggregation import (combine_leaf,
+                                          weighted_average_stacked)
+from repro_torch.fl.client import (make_loss_fn, scaffold_correction,
+                                   scaffold_update)
 from repro_torch.optim import AdamState, adam_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+# The axis of each method's ctx entries: 0 = per-client (C, ...) rows,
+# None = one copy every client reads (the reference's vmap in_axes).
+CTX_AXES = {
+    "fedphd": {},
+    "fedavg": {},
+    "fedprox": {"global_params": None},
+    "feddiffuse": {"local_params": 0},
+    "moon": {"global_params": None, "prev_params": 0},
+    "scaffold": {"c_local": 0, "c_global": None, "scale": 0},
+}
 
 
 # ---------------------------------------------------------------------------
@@ -184,59 +206,67 @@ def adam_stack_from_tree(t, store: str = "device",
 # ---------------------------------------------------------------------------
 
 def draw_round(generator: torch.Generator, valid: np.ndarray,
-               image_shape, num_steps: int, device
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               image_shape, num_steps: int, device, *,
+               features: bool = False) -> Tuple[torch.Tensor, ...]:
     """The DDPM t (C, S, B) and eps (C, S, B, H, W, ch) of a round,
     client after client and, within a client, step after step: for each
     real step the calls the sequential step's ``ddpm_loss`` makes,
     ``torch.randint(0, T, (B,))`` then ``torch.randn((B, H, W, ch))``,
     so the generator yields the same numbers in the same order as in a
-    sequential round.  Padded steps draw nothing and get zeros (their
-    result is dropped).  One call per step, never one large draw: the
-    generator's state advances per call, so one (S, B, ...) draw gives
-    other numbers."""
+    sequential round.  ``features`` (MOON) adds a third (C, S, B, H, W,
+    ch) draw, the feature noise the sequential MOON step draws right
+    after its DDPM draws.  Padded steps draw nothing and get zeros
+    (their result is dropped).  One call per step, never one large draw:
+    the generator's state advances per call, so one (S, B, ...) draw
+    gives other numbers."""
     B = image_shape[0]
-    ts, epss = [], []
+    shape = tuple(image_shape)
+    out = ([], [], []) if features else ([], [])
     zt = torch.zeros((B,), dtype=torch.int64, device=device)
-    ze = torch.zeros(tuple(image_shape), dtype=torch.float32, device=device)
+    ze = torch.zeros(shape, dtype=torch.float32, device=device)
     for row in valid:
         for ok in row:
-            if ok:
-                ts.append(torch.randint(0, num_steps, (B,),
+            if not ok:
+                out[0].append(zt)
+                for lst in out[1:]:
+                    lst.append(ze)
+                continue
+            out[0].append(torch.randint(0, num_steps, (B,),
                                         generator=generator, device=device))
-                epss.append(torch.randn(tuple(image_shape),
-                                        generator=generator, device=device,
-                                        dtype=torch.float32))
-            else:
-                ts.append(zt)
-                epss.append(ze)
+            for lst in out[1:]:
+                lst.append(torch.randn(shape, generator=generator,
+                                       device=device, dtype=torch.float32))
     C, S = valid.shape
-    return (torch.stack(ts).reshape((C, S, B)),
-            torch.stack(epss).reshape((C, S) + tuple(image_shape)))
+    return (torch.stack(out[0]).reshape((C, S, B)),) + tuple(
+        torch.stack(lst).reshape((C, S) + shape) for lst in out[1:])
 
 
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
-def make_train_one(loss_fn, *, lr: float = 2e-4):
+def make_train_one(loss_fn, *, method: str = "fedphd", lr: float = 2e-4):
     """The C clients' local rounds, one batched step at a time.
 
-    ``train_one(params, opt_state, batches, valid, draws)`` ->
+    ``train_one(params, opt_state, batches, valid, draws, ctx=None)`` ->
     ``(params, opt_state, losses)``: ``params`` and ``opt_state`` stacked
     (C, ...) (a (C,) Adam step), ``batches`` leaves (C, S, B, ...) on the
     device, ``valid`` the host (C, S) bool mask, ``draws`` the round's
-    ``(t, eps)`` (:func:`draw_round`).  ``losses`` is the (C,) float64
-    mean loss of each client's real steps, from the round's one host
-    sync.  ``loss_fn(params, batch, None, clients=C, t=, eps=)`` gives
-    the (C,) losses of one step.  A step where any client is padded
+    ``(t, eps)`` or, for MOON, ``(t, eps, feat_eps)`` (:func:`draw_round`),
+    ``ctx`` the method's anchors, rows already the C clients'.
+    ``losses`` is the (C,) float64 mean loss of each client's real
+    steps, from the round's one host sync.  ``loss_fn(params, batch,
+    None, clients=C, t=, eps=)`` (with ``ctx=`` and ``feat_eps=`` where
+    the method has them) gives the (C,) losses of one step; SCAFFOLD's
+    gradients are corrected per client before Adam.  A step where any client is padded
     keeps that client's params, moments and step as they were
     (``torch.where`` on the client axis): padding is a bitwise no-op.
     A step with no padding selects nothing.  (The reference's ``masked``
     flag picks one of two static XLA programs; this loop reads the mask
     at every step, so it needs no flag.)
 
-    ``train_one.steps(start, batches, valid, draws)`` is the same loop
+    ``train_one.steps(start, batches, valid, draws, ctx=None)`` is the
+    same loop
     without the sync, for a caller that trains several chunks of clients
     and syncs once (:func:`client_means`): ``start()`` returns the
     initial ``(params, opt_state)``, so that the loop holds the only
@@ -244,23 +274,27 @@ def make_train_one(loss_fn, *, lr: float = 2e-4):
     begins (held by a caller, they would add three model copies a
     client to every step after the first); it returns the (C, S) step
     losses on the device."""
-    def steps(start, batches, valid, draws):
+    def steps(start, batches, valid, draws, ctx=None):
         params, opt_state = start()
         C, S = valid.shape
-        t_all, eps_all = draws
-        device = t_all.device
+        device = draws[0].device
+        # step s of every client, the clients' rows one after another
+        at = lambda d, s: d[:, s].reshape((-1,) + tuple(d.shape[3:]))
         step_losses = []
         for s in range(S):
-            batch = {k: v[:, s].reshape((-1,) + tuple(v.shape[3:]))
-                     for k, v in batches.items()}
+            batch = {k: at(v, s) for k, v in batches.items()}
+            kw = {} if ctx is None else {"ctx": ctx}
+            if len(draws) > 2:
+                kw["feat_eps"] = at(draws[2], s)
             p = tree_map(lambda x: x.detach().requires_grad_(), params)
             leaves = tree_leaves(p)
             losses = loss_fn(p, batch, None, clients=C,
-                             t=t_all[:, s].reshape(-1),
-                             eps=eps_all[:, s].reshape(
-                                 (-1,) + tuple(eps_all.shape[3:])))
+                             t=at(draws[0], s), eps=at(draws[1], s),
+                             **kw)
             grads = tree_unflatten(p, torch.autograd.grad(losses.sum(),
                                                           leaves))
+            if method == "scaffold":
+                grads = scaffold_correction(grads, ctx)
             new_p, new_o = adam_update(grads, opt_state, params, lr=lr,
                                        grad_clip=1.0)
             if not valid[:, s].all():
@@ -275,9 +309,9 @@ def make_train_one(loss_fn, *, lr: float = 2e-4):
             step_losses.append(losses.detach())
         return params, opt_state, torch.stack(step_losses, dim=1)
 
-    def train_one(params, opt_state, batches, valid, draws):
+    def train_one(params, opt_state, batches, valid, draws, ctx=None):
         params, opt_state, per_step = steps(lambda: (params, opt_state),
-                                            batches, valid, draws)
+                                            batches, valid, draws, ctx)
         return params, opt_state, client_means(per_step, valid)
 
     train_one.steps = steps
@@ -316,6 +350,19 @@ ACT_SHARE = 0.9
 # the CUDA context and the caching allocator's slack take the rest.
 USABLE_SHARE = 0.9
 _DTYPE_BYTES = {"fp32": 4, "bf16": 2}
+# What a method adds to a round, beside FedPhD's: fp32 model copies per
+# round client and per chunk client, and the chunk client's activations
+# as a multiple of one forward's.  FedProx: the backward keeps
+# x - global of every leaf (its one global model is the trainer's own,
+# counted).  MOON: the round's prev_params rows; the trained model's
+# feature forward keeps a second forward's activations, and the no-grad
+# forwards of the global and previous models add their transients.
+# SCAFFOLD: the c_local rows and the c_new stack; the corrected
+# gradients beside the raw ones.  FedDiffuse: the decoder rows (counted
+# as whole models).
+METHOD_COPIES = {"fedphd": (0, 0, 1.0), "fedavg": (0, 0, 1.0),
+                 "fedprox": (0, 1, 1.0), "moon": (1, 0, 2.2),
+                 "scaffold": (2, 1, 1.0), "feddiffuse": (1, 0, 1.0)}
 
 
 def unet_elems(cfg: ModelConfig) -> Tuple[int, int]:
@@ -388,27 +435,35 @@ def unet_elems(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def round_bytes(cfg: ModelConfig, batch_shape, k: int, *, edges: int = 1,
-                opt_rows: bool = False) -> int:
+                opt_rows: bool = False, method: str = "fedphd",
+                stored: int = 0) -> int:
     """The estimated peak bytes of a round whose images stack as
     ``batch_shape`` (C, S, B, H, W, ch), trained in chunks of ``k``
     clients: every client's fp32 model in the trained stack, the E edge
     models twice (the trainer's and the engine's stack) and the global
-    model, the round's images and eps, with ``opt_rows`` the C clients'
-    persistent Adam rows in and out; and the chunk's k clients' state
-    and activations (module constants)."""
+    model, the round's images and eps (and MOON's feature noise), with
+    ``opt_rows`` the C clients' persistent Adam rows in and out, and
+    ``stored`` fp32 model copies the trainer keeps across rounds (its
+    (N, ...) method state on the card); the chunk's k clients' state and
+    activations (module constants); and the method's own copies
+    (``METHOD_COPIES``)."""
     C, B = int(batch_shape[0]), int(batch_shape[2])
     params, acts = unet_elems(cfg)
     p_bytes = 4 * params
-    data = 2 * 4 * int(np.prod(batch_shape))
-    models = 2 * edges + 1 + C + (4 * C if opt_rows else 0)
+    per_round, per_chunk, act_mult = METHOD_COPIES[method]
+    data = (3 if method == "moon" else 2) * 4 * int(np.prod(batch_shape))
+    models = 2 * edges + 1 + C + (4 * C if opt_rows else 0) \
+        + per_round * C + stored
     fixed = models * p_bytes + data
     dtype = _DTYPE_BYTES[cfg.precision or "fp32"]
-    per_client = STATE_COPIES * p_bytes + ACT_SHARE * dtype * B * acts
+    per_client = (STATE_COPIES + per_chunk) * p_bytes \
+        + act_mult * ACT_SHARE * dtype * B * acts
     return int(fixed + k * per_client)
 
 
 def client_chunk(cfg: ModelConfig, batch_shape, total_memory: int, *,
-                 edges: int = 1, opt_rows: bool = False) -> int:
+                 edges: int = 1, opt_rows: bool = False,
+                 method: str = "fedphd", stored: int = 0) -> int:
     """The chunk size k for a round whose images stack as ``batch_shape``
     (C, S, B, H, W, ch) on a card of ``total_memory`` bytes: the fewest
     chunks whose :func:`round_bytes` fits USABLE_SHARE of the card, cut
@@ -419,12 +474,11 @@ def client_chunk(cfg: ModelConfig, batch_shape, total_memory: int, *,
     client does not fit."""
     C = int(batch_shape[0])
     budget = USABLE_SHARE * total_memory
+    kw = dict(edges=edges, opt_rows=opt_rows, method=method, stored=stored)
     fits = [k for k in range(1, C + 1)
-            if round_bytes(cfg, batch_shape, k, edges=edges,
-                           opt_rows=opt_rows) <= budget]
+            if round_bytes(cfg, batch_shape, k, **kw) <= budget]
     if not fits:
-        need = round_bytes(cfg, batch_shape, 1, edges=edges,
-                           opt_rows=opt_rows)
+        need = round_bytes(cfg, batch_shape, 1, **kw)
         raise MemoryError(
             f"one client of {cfg.name} at batch shape {tuple(batch_shape)}"
             f" ({cfg.precision or 'fp32'}) needs an estimated {need:,} "
@@ -445,9 +499,10 @@ def chunk_bounds(C: int, k: int):
 
 
 def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
-                      sparse: bool = False, groups=None, lr: float = 2e-4,
-                      prune_masks=None, max_clients: Optional[int] = None):
-    """The vectorized round for FedPhD's clients.
+                      method: str = "fedphd", sparse: bool = False,
+                      groups=None, lr: float = 2e-4, prune_masks=None,
+                      max_clients: Optional[int] = None, stored: int = 0):
+    """The vectorized round for ``method``'s clients.
 
     ``sparse`` with ``groups`` adds Omega to the loss (one client-axis
     group-L2 launch a step); ``prune_masks`` (PruneGroup name -> 0/1
@@ -455,33 +510,45 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
     sparse-phase forward.
 
     Returns ``engine(edge_params, edge_idx, batches, valid, draws, w_mat,
-    opt_states=None)`` where
+    ctx=None, opt_states=None)`` where
 
-      edge_params: tree, leaves (E, ...): each edge server's model
+      edge_params: tree, leaves (E, ...): each edge server's model (the
+                   flat baselines: E = 1, the global model)
       edge_idx:    (C,) int: the edge each client starts from
       batches:     tree, leaves (C, S, B, ...) on the device
                    (``stack_round``)
       valid:       (C, S) host bool mask of real steps
-      draws:       the round's (t, eps) (:func:`draw_round`)
+      draws:       the round's (t, eps) or, for MOON, (t, eps, feat_eps)
+                   (:func:`draw_round`)
       w_mat:       (E, C) float32 normalized per-edge aggregation rows
+      ctx:         the method's anchors by ``CTX_AXES[method]``: (C, ...)
+                   rows or one shared copy; FedDiffuse's
+                   ``local_params`` rows replace the start's decoder
       opt_states:  stacked per-client Adam rows; None starts every
                    client's Adam from zeros
 
     and the result is a dict: ``"agg"``, the edge-aggregated models with a
     leading (E,) axis (fp32 sums, integer leaves rounded); ``"losses"``,
     the (C,) host mean losses; ``"opt"``, the updated Adam rows (when
-    ``opt_states`` was given).
+    ``opt_states`` was given); ``"trained"``, the (C, ...) trained
+    models (MOON, FedDiffuse); and for SCAFFOLD ``"c_new"``, the (C, ...)
+    c_i+ = c_i - c + scale_i (x - y_i) rows, with x the client's start
+    model, and ``"dc_mean"``, the uniform mean of c_i+ - c_i.
 
     The clients train in chunks (:func:`client_chunk` on a CUDA device,
-    all C at once on the CPU); ``max_clients`` replaces that choice with
-    chunks of at most ``max_clients`` (tests, and the memory probe of
-    ``chip_smoke.py``)."""
-    loss_fn = make_loss_fn(cfg, fl, sparse=sparse, groups=groups,
-                           prune_masks=prune_masks)
-    train_one = make_train_one(loss_fn, lr=lr)
+    all C at once on the CPU), the ctx rows sliced with them; ``stored``
+    is the fp32 model copies the caller keeps on the card across rounds,
+    which the chunk size leaves room for.  ``max_clients`` replaces that
+    choice with chunks of at most ``max_clients`` (tests, and the memory
+    probes of ``chip_smoke.py``)."""
+    loss_fn = make_loss_fn(cfg, fl, method=method, sparse=sparse,
+                           groups=groups, prune_masks=prune_masks)
+    train_one = make_train_one(loss_fn, method=method, lr=lr)
+    axes = CTX_AXES[method]
 
     def engine(edge_params, edge_idx, batches, valid, draws, w_mat,
-               opt_states=None):
+               ctx=None, opt_states=None):
+        ctx = ctx or {}
         device = tree_leaves(edge_params)[0].device
         C = valid.shape[0]
         if max_clients is not None:
@@ -491,50 +558,80 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                 cfg, tuple(batches["images"].shape),
                 torch.cuda.get_device_properties(device).total_memory,
                 edges=tree_leaves(edge_params)[0].shape[0],
-                opt_rows=opt_states is not None)
+                opt_rows=opt_states is not None, method=method,
+                stored=stored)
         else:
             k = C
         bounds = chunk_bounds(C, k)
         edge_idx = np.asarray(edge_idx)
-        t_all, eps_all = draws
-        trained = opt_out = None
-        step_losses = []
+        local = ctx.get("local_params")
+        step_losses, out, dc = [], {}, None
+
+        def rows(tree, a, b):
+            return tree_map(lambda x: x[a:b], tree)
+
+        def start_rows(a, b):
+            """The chunk's start models, read in place where they all
+            start from one edge (the flat round)."""
+            if len(set(edge_idx[a:b].tolist())) == 1:
+                e = int(edge_idx[a])
+                return tree_map(lambda leaf: leaf[e:e + 1], edge_params)
+            idx = torch.as_tensor(edge_idx[a:b], device=device)
+            return tree_map(lambda leaf: leaf[idx], edge_params)
 
         def start(a, b):
             idx = torch.as_tensor(edge_idx[a:b], device=device)
-            params = tree_map(lambda leaf: leaf[idx], edge_params)
+            params = {name: rows(local[name], a, b)
+                      if local is not None and name in local else
+                      tree_map(lambda leaf: leaf[idx], sub)
+                      for name, sub in edge_params.items()}
             if opt_states is not None:
-                return params, tree_map(lambda x: x[a:b], opt_states)
+                return params, rows(opt_states, a, b)
             zeros = lambda x: torch.zeros_like(x, dtype=torch.float32)
             return params, AdamState(          # every client from zeros
                 step=torch.zeros((b - a,), dtype=torch.int32, device=device),
                 mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
-        for a, b in bounds:
-            p, o, losses = train_one.steps(
-                lambda: start(a, b), {n: v[a:b] for n, v in batches.items()},
-                valid[a:b], (t_all[a:b], eps_all[a:b]))
-            step_losses.append(losses)
+        def put(name, tree, a, b):
+            """The chunk's rows into the round's (C, ...) stack: one
+            preallocated stack written in place, so the round never holds
+            a second copy of C models."""
             if len(bounds) == 1:
-                trained, opt_out = p, o
-                continue
-            # one preallocated (C, ...) stack, each chunk written in
-            # place, so the round never holds a second copy of C models
-            if trained is None:
-                trained = tree_map(
-                    lambda x: x.new_empty((C,) + tuple(x.shape[1:])), p)
-                if opt_states is not None:
-                    opt_out = tree_map(
-                        lambda x: x.new_empty((C,) + tuple(x.shape[1:])), o)
-            tree_map(lambda dst, src: dst[a:b].copy_(src), trained, p)
+                out[name] = tree
+                return
+            if name not in out:
+                out[name] = tree_map(
+                    lambda x: x.new_empty((C,) + tuple(x.shape[1:])), tree)
+            tree_map(lambda dst, src: dst[a:b].copy_(src), out[name], tree)
+
+        for a, b in bounds:
+            cctx = {name: rows(v, a, b) if axes.get(name) == 0 else v
+                    for name, v in ctx.items() if name != "local_params"}
+            p, o, losses = train_one.steps(
+                lambda: start(a, b), rows(batches, a, b), valid[a:b],
+                tuple(d[a:b] for d in draws), cctx or None)
+            step_losses.append(losses)
+            if method == "scaffold":
+                c_new = scaffold_update(cctx["c_local"], cctx["c_global"],
+                                        start_rows(a, b), p, cctx["scale"])
+                uni = torch.full((b - a,), 1.0 / C, dtype=torch.float32,
+                                 device=device)
+                part = tree_map(lambda n, o_: combine_leaf(n - o_, uni),
+                                c_new, cctx["c_local"])
+                dc = part if dc is None else tree_map(torch.add, dc, part)
+                put("c_new", c_new, a, b)
+                del c_new
+            put("trained", p, a, b)
             if opt_states is not None:
-                tree_map(lambda dst, src: dst[a:b].copy_(src), opt_out, o)
+                put("opt", o, a, b)
             del p, o
-        losses = client_means(torch.cat(step_losses), valid)
-        out = {"agg": weighted_average_stacked(trained, w_mat),
-               "losses": losses}
-        if opt_states is not None:
-            out["opt"] = opt_out
+        trained = out.pop("trained")
+        out.update(agg=weighted_average_stacked(trained, w_mat),
+                   losses=client_means(torch.cat(step_losses), valid))
+        if method in ("moon", "feddiffuse"):
+            out["trained"] = trained
+        if method == "scaffold":
+            out["dc_mean"] = dc
         return out
 
     return engine
@@ -549,12 +646,15 @@ def uniform_batch_shape(clients) -> Optional[tuple]:
     return shapes.pop() if len(shapes) == 1 else None
 
 
-def route_engine(engine: str, strict: bool, round_clients,
-                 warned: bool) -> Tuple[bool, bool]:
+def route_engine(engine: str, strict: bool, round_clients, warned: bool,
+                 trainer: str = "FedPhD",
+                 method: str = "") -> Tuple[bool, bool]:
     """``(use_vectorized, warned)`` for one round.  Clients of ragged
     batch shapes fall back to the sequential engine, with a warning once
     per trainer (``warned`` carries that across its rounds); an
-    explicitly requested (strict) ``"vectorized"`` raises instead."""
+    explicitly requested (strict) ``"vectorized"`` raises instead.  The
+    warning names ``trainer`` and ``method``: Python shows a message once
+    per place, so two trainers' fallbacks must differ in their text."""
     if engine == "sequential":
         return False, warned
     uniform = uniform_batch_shape(round_clients) is not None
@@ -564,8 +664,9 @@ def route_engine(engine: str, strict: bool, round_clients,
                              "batch shape; use engine='auto' or "
                              "'sequential' for ragged clients")
         if not warned:
-            warnings.warn(f"ragged client batch shapes: FedPhD "
-                          f"(engine={engine}) falling back to the "
-                          "sequential round engine", RuntimeWarning)
+            warnings.warn(f"ragged client batch shapes: {trainer} "
+                          f"(method={method or trainer}, engine={engine}) "
+                          "falling back to the sequential round engine",
+                          RuntimeWarning)
             warned = True
     return uniform, warned

@@ -162,11 +162,15 @@ def test_spec_and_presets_match_reference():
 
 
 def test_registry_and_refusals(monkeypatch, tmp_path):
-    """fedphd and fedphd-os are registered; the reference's other methods
-    and every unported feature raise, naming the ROADMAP item."""
-    assert registered_methods() == ["fedphd", "fedphd-os"]
+    """fedphd, fedphd-os and the five flat baselines are registered; the
+    reference's staleness variants and every unported feature raise,
+    naming the ROADMAP item."""
+    assert registered_methods() == ["fedavg", "feddiffuse", "fedphd",
+                                    "fedphd-os", "fedprox", "moon",
+                                    "scaffold"]
     assert method_entry("fedphd-os").topology == "hierarchical"
-    for name, item in (("fedavg", "A.9"), ("scaffold", "A.9"),
+    assert method_entry("scaffold").topology == "flat"
+    for name, item in (("fedavg-stale", "A.10"),
                        ("fedphd-stale", "A.10")):
         with pytest.raises(NotImplementedError, match=item):
             method_entry(name)
