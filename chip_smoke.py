@@ -43,6 +43,13 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             as medians over its runs.  After those runs, the vectorized
             engine's peak memory for one sparse step at C = 4, 8, 10, 12,
             16, 20 clients, up to the first C that does not fit;
+4b. train_bf16  the first vectorized run again at ``precision="bf16"``
+            (the params cast to bf16 inside the loss): finite losses,
+            each round's within BF16_LOSS_ATOL of the fp32 run's, the
+            downloads exactly half its, the same launch counts with
+            every matmul, attention and group-L2 launch in bf16 (phase 8
+            holds each of those shapes against its plain version), peak
+            memory and images/s beside the fp32 run's;
 5. lm_prefill  the full 38-layer recurrentgemma-9b in bf16 with random
             weights from the port's init, ``build_prefill_step`` on
             B = 2, S = 4096 token ids from a numpy seed: one warm-up and
@@ -95,6 +102,33 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             unbroken run (params, method stacks, losses); and
             ``centralized``, 8 steps of ``run_centralized`` with the EMA,
             which must equal the EMA recomputed here in fp32;
+7d. faults  FAULT_SPEC (arrivals, dropouts, stragglers past a deadline,
+            churn) on the ``train`` cell through the experiment API,
+            experiment seed FAULT_SEED: FedPhD 3 rounds (sparse, the
+            prune, compacted), and under FAULT_STALE (a deadline a fast
+            client meets) ``fedphd-stale`` 3 and ``fedavg-stale`` 2, on
+            each engine: each round's availability record, ``comm_gb``
+            equal to a count of the bytes sent (from the availability,
+            the edge assignment and the parameter counts), exactly the
+            launches the budgets make; ``faults_engines`` the two
+            engines' availability, selections and bytes identical, losses
+            within TRAIN_LOSS_RTOL, params and late deltas within
+            TRAIN_PARAMS_ATOL; ``faults_resume`` ``fedphd-stale`` killed
+            after round 1 and resumed, bit for bit (history, params, late
+            deltas, the fault stream).  A dropped and a late client must
+            occur, and in each staleness run an aggregate that takes an
+            on-time reporter and buffers a late client;
+7e. quant   the int8 and fp8 uplink with error feedback (QUANT_RUNS):
+            FedPhD and SCAFFOLD on the vectorized engine, bytes equal to
+            the count and the uplink's ratio to fp32's, exact launches;
+            ``quant_engines`` one sequential FedPhD round against the
+            vectorized run's first, the bytes identical, params within
+            TRAIN_PARAMS_ATOL plus the largest quantization bucket of
+            each leaf (taken on the sequential run, which is not timed);
+            ``quant_resume`` FedPhD int8 killed and resumed, params,
+            error-feedback rows (nonzero) and history bit for bit; and the
+            card's quantizer bitwise against the CPU's on the same
+            deltas (exact ties, values past +-448);
 8. kernels  every kernel against its plain PyTorch version on the card at
             each shape the serving, training, LM, experiment and
             baselines runs launched it with
@@ -145,14 +179,17 @@ and fails if it is below the measured peak.  After it,
 paper preset's 20 clients (one step each) in chunks of the k
 ``client_chunk`` picks for the paper preset, the 20-row method state on
 the card: its peak, less what was allocated before, must not exceed the
-method's estimate.
+method's estimate.  ``quant_memory`` does the same for FedPhD with the
+int8 uplink over the paper preset's round, its 20 error-feedback rows
+on the card, in chunks of ``client_chunk``'s k with the uplink counted.
 
 Every kernel's counters (``.launches``, the per-shape ``.shapes``, the
 matmul's ``.dx_shapes`` and group-L2's ``.bwd_launches`` and
 ``.bwd_shapes``) are set to 0 just before each serving run, each
-training run, each LM run, each experiment run and each baselines run,
-and read just after it.  Group-L2 launches once per Omega evaluation and once per pruning score: the sequential
-training run must launch it once a sparse step plus once at R_s, the
+training run, each LM run, each experiment run, each baselines run
+and each faults and quant run, and read just after it.  Group-L2
+launches once per Omega evaluation and once per pruning score: the
+sequential training run must launch it once a sparse step plus once at R_s, the
 vectorized one once a batched sparse step plus once at R_s, the 0.44
 serving run once.
 
@@ -166,8 +203,9 @@ shape's time (count x time per launch; ``library_ms`` is null where no
 PyTorch call computes the function), ``bound_share`` is bound_ms / ms
 and ``vs_library`` ms / library_ms.  ``paths`` gives the same for every
 run, among them ``train_vectorized`` (the first vectorized training
-run), ``experiment`` (the unbroken paper run) and ``baselines`` (every
-run of phase 7c), the matmul's launches on those and ``train`` also
+run), ``train_bf16``, ``experiment`` (the unbroken paper run),
+``baselines``, ``faults`` and ``quant`` (every run of phases 7c, 7d and
+7e), the matmul's launches on those and ``train`` also
 split into forward and dx; group-L2's entry
 is its forward launches, and ``backward`` (and
 ``backward_train_vectorized``, ``backward_experiment``) gives its
@@ -209,9 +247,9 @@ SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
 LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency")
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
-BACKWARD_PATHS = TRAIN_PATHS + ("experiment", "baselines")
-PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + ("experiment",
-                                                        "baselines")
+BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "experiment", "baselines",
+                                "faults", "quant")
+PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + BACKWARD_PATHS[2:]
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
               "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
 TRAIN_BATCH = 32
@@ -261,6 +299,31 @@ BASELINE_SHARED = ("conv_in", "temb1", "temb2", "down", "mid")
 # the trained model's feature forward and the global and previous
 # models' no-grad ones; every other method makes one with a backward
 BASELINE_FORWARDS = {"moon": (2, 2)}
+# phase 7d (faults): every fault of the reference's fault model at once
+# on the train cell (2 steps a client: a deadline of 0.75 leaves 1 to a
+# fast client, 0 to a slow one), for the truncation and dropout run;
+# the staleness runs' deadline of 1.0 leaves a fast client on time and
+# makes a slow one late, so that one aggregate takes reporters and
+# buffers late deltas (with the fault seed 2, FedPhD's edges in rounds 1
+# and 2, FedAvg in both of its rounds; a client drops in round 2)
+FAULT_SPEC = dict(arrival=0.9, dropout=0.25, straggler_frac=0.5,
+                  slowdown=2.0, deadline=0.75, churn=0.1, seed=1)
+FAULT_STALE = dict(FAULT_SPEC, deadline=1.0, seed=2)
+FAULT_SEED = 0
+FAULT_RUNS = (("fedphd", 3, FAULT_SPEC),
+              ("fedphd-stale", 3, FAULT_STALE),
+              ("fedavg-stale", 2, FAULT_STALE))
+FAULT_RESUMED = "fedphd-stale"
+# phase 7e (quant): (method, uplink dtype, rounds), vectorized; FedPhD's
+# int8 run is also killed and resumed
+QUANT_RUNS = (("fedphd", "int8", 3), ("fedphd", "fp8", 2),
+              ("scaffold", "int8", 2), ("scaffold", "fp8", 1))
+QUANT_RESUMED = "int8"
+# the widest gap between neighbouring codes of each uplink dtype, in
+# scales: int8's 1, fp8-e4m3's 32 (its step from 256 to 448)
+QUANT_STEP = {"int8": 1.0, "fp8": 32.0}
+# bf16 training against fp32: each round's loss (tests/test_precision.py)
+BF16_LOSS_ATOL = 0.05
 # one CIFAR10_UNET forward's launches: its 101 GEMMs, the 99 dx of its
 # backward (all but conv_in's and temb1's, whose inputs need no
 # gradient), and its 6 attention blocks
@@ -911,7 +974,7 @@ def lm_consistency_phase(cfg, dev, counters, zero_counters):
 # phase 4: training
 # ---------------------------------------------------------------------------
 
-def make_trainer(cfg, dev, engine):
+def make_trainer(cfg, dev, engine, precision="fp32"):
     """The port's FedPhD on ``engine`` over 320 synthetic CIFAR-10-like
     images: 4 clients holding 2 classes each, batch 32, 2 edges, 3
     rounds with R_s = 2 (round 1 sparse, the prune at round 2's cloud
@@ -932,11 +995,11 @@ def make_trainer(cfg, dev, engine):
     fl = FLConfig(num_clients=TRAIN_CLIENTS, num_edges=2, participation=1.0,
                   local_epochs=1, edge_agg_every=1, cloud_agg_every=1,
                   rounds=3, sparse_rounds=2, prune_ratio=0.44)
-    return FedPhD(cfg.replace(precision="fp32"), fl, clients, device=dev,
+    return FedPhD(cfg.replace(precision=precision), fl, clients, device=dev,
                   lr=TRAIN_LR, engine=engine)
 
 
-def train_run(cfg, dev, engine, counters, zero_counters):
+def train_run(cfg, dev, engine, counters, zero_counters, precision="fp32"):
     """One training run on ``engine``, the counters set to 0 just before
     it and read just after: the trainer, its history, its kernel tallies
     (kernel -> {shape key: launches}, with the matmul's dx launches under
@@ -948,7 +1011,7 @@ def train_run(cfg, dev, engine, counters, zero_counters):
     of each round and the peak device memory."""
     import torch
 
-    trainer = make_trainer(cfg, dev, engine)
+    trainer = make_trainer(cfg, dev, engine, precision)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
@@ -1793,6 +1856,647 @@ def centralized_phase(dev):
 
 
 # kernel-name fragments -> category, for the profile's device-time split
+# ---------------------------------------------------------------------------
+# phases 4b, 7d, 7e: bf16 training, faults, the quantized uplink
+# ---------------------------------------------------------------------------
+
+def train_bf16_phase(cfg, dev, counters, zero_counters, fp32_run):
+    """``train (vectorized)`` at bf16: the same FedPhD run as the first
+    vectorized fp32 run (``fp32_run``), the params cast to bf16 inside
+    the loss.  Finite losses, each round's loss within BF16_LOSS_ATOL of
+    the fp32 run's, the downloads exactly half the fp32 run's, the fp32
+    run's launch counts with every matmul, attention and group-L2 launch
+    in bf16; peak memory and images/s beside the fp32 run's.  Returns
+    the run's tallies, which the kernel checks hold against the plain
+    versions."""
+    import numpy as np
+
+    run = train_run(cfg, dev, "vectorized", counters, zero_counters,
+                    precision="bf16")
+    hist, fp = run["hist"], fp32_run["hist"]
+    tally, launches = run["tally"], run["launches"]
+    images = TRAIN_BATCH * sum(run["steps"])
+    loss_diff = [abs(a.loss - b.loss) for a, b in zip(hist, fp)]
+    dtypes = {k: sorted({key[-1] if k == "flash_attention" else key[4]
+                         for key in tally[k]})
+              for k in ("block_masked_matmul", "flash_attention")}
+    # group-L2 launches by their members' dtype: Omega reads the bf16
+    # casts, the prune's scores the fp32 params
+    gl2_dtypes = {}
+    for key, n in tally["group_l2_norms"].items():
+        dt = "/".join(sorted({dt for _, dt in key[0]}))
+        gl2_dtypes[dt] = gl2_dtypes.get(dt, 0) + n
+    emit("train_bf16", engine="vectorized", precision="bf16",
+         loss=[h.loss for h in hist], loss_fp32=[h.loss for h in fp],
+         loss_abs_diff=loss_diff, loss_atol=BF16_LOSS_ATOL,
+         comm_down_gb=[h.comm_down_gb for h in hist],
+         comm_down_gb_fp32=[h.comm_down_gb for h in fp],
+         comm_up_gb=[h.comm_up_gb for h in hist],
+         params_m=[h.params_m for h in hist],
+         local_s_by_round=run["round_s"],
+         images_per_s=images / sum(run["round_s"]),
+         images_per_s_fp32=images / sum(fp32_run["round_s"]),
+         peak_mem_bytes=run["peak"], peak_mem_bytes_fp32=fp32_run["peak"],
+         launches=dict(launches, group_l2_norms_bwd=run["gl2_bwd"]),
+         kernel_dtypes=dict(dtypes, group_l2_norms=gl2_dtypes),
+         matmul_shapes=len(tally["block_masked_matmul"]),
+         matmul_dx_shapes=len(tally["block_masked_matmul_dx"]),
+         attention_shapes=sorted(tally["flash_attention"]))
+    require(all(np.isfinite(h.loss) for h in hist) and len(hist) == 3,
+            f"train_bf16: losses {[h.loss for h in hist]}")
+    require(max(loss_diff) <= BF16_LOSS_ATOL,
+            f"train_bf16: losses {loss_diff} from the fp32 run's, limit "
+            f"{BF16_LOSS_ATOL}")
+    require([2 * h.comm_down_gb for h in hist]
+            == [h.comm_down_gb for h in fp]
+            and [h.comm_up_gb for h in hist] == [h.comm_up_gb for h in fp],
+            "train_bf16: downloads not half the fp32 run's, or uploads "
+            "not equal")
+    got = dict(launches, group_l2_norms_bwd=run["gl2_bwd"])
+    require(got == dict(VECTORIZED_LAUNCHES, rglru_scan=0),
+            f"train_bf16: launches {got}, want {VECTORIZED_LAUNCHES}")
+    require(dtypes == {"block_masked_matmul": ["bfloat16"],
+                       "flash_attention": ["bfloat16"]}
+            and gl2_dtypes == {"bfloat16": 2, "float32": 1},
+            f"train_bf16: kernel dtypes {dtypes}, group-L2 launches by "
+            f"dtype {gl2_dtypes} (want Omega's 2 in bf16, the prune's 1 "
+            f"in fp32)")
+    return tally
+
+
+def fl_spec(method, engine, rounds, *, fault=None, quant="none", seed=0):
+    """FedPhD (or a flat method) on the ``train`` cell through the
+    experiment API: full-width CIFAR10_UNET in fp32, 4 clients of 2
+    classes (80 images, 2 steps a round), batch 32; FedPhD with 2 edges,
+    the cloud every round and the prune at R_s = 2, as
+    :func:`make_trainer`'s; ``fault`` a FaultSpec's fields."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.experiment.registry import method_entry
+    from repro_torch.experiment.spec import (CommSpec, DataSpec,
+                                             ExperimentSpec, FaultSpec)
+    fl = FLConfig(num_clients=TRAIN_CLIENTS, local_epochs=1, rounds=rounds)
+    if method_entry(method).topology == "hierarchical":
+        fl = FLConfig(num_clients=TRAIN_CLIENTS, num_edges=2,
+                      participation=1.0, local_epochs=1, edge_agg_every=1,
+                      cloud_agg_every=1, rounds=rounds, sparse_rounds=2,
+                      prune_ratio=0.44)
+    return ExperimentSpec(
+        name=f"{method}-{engine}", method=method, model="ddpm-unet-cifar10",
+        fl=fl, data=DataSpec(dataset=BASELINE_DATASET, classes_per_client=2,
+                             batch_size=TRAIN_BATCH),
+        engine=engine, precision="fp32", lr=TRAIN_LR, seed=seed,
+        fault=FaultSpec(**(fault or {})), comm=CommSpec(quant=quant))
+
+
+def fl_run(spec, dev, counters, zero_counters, rounds=None):
+    """``spec`` for ``rounds`` rounds (default its own) through
+    ``Experiment``, the counters set to 0 just before and read just
+    after: the experiment, history, FedPhD's edge assignment of every
+    round (the engines' argument, recorded), the parameter count before
+    each round and after the last, CPU copies of the params and the
+    error-feedback rows after round 1, kernel tallies and launches,
+    local seconds and peak memory."""
+    import torch
+    from repro_torch.experiment.run import Experiment
+    from repro_torch.tree import tree_leaves
+
+    exp = Experiment(spec, device=dev)
+    tr = exp.trainer
+    assignments = []
+    for name in ("_local_and_edge_sequential", "_local_and_edge_vectorized"):
+        if hasattr(tr, name):
+            def rec(r, assignment, *a, _inner=getattr(tr, name)):
+                assignments.append({e: list(c)
+                                    for e, c in assignment.items()})
+                return _inner(r, assignment, *a)
+            setattr(tr, name, rec)
+    count = lambda: sum(p.numel() for p in tree_leaves(tr.params))
+    n_params = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    first = {}
+    for r in range(1, (rounds or spec.fl.rounds) + 1):
+        n_params.append(count())
+        exp.run(r)
+        if r == 1:
+            first = {k: [x.detach().to("cpu", copy=True)
+                         for x in tree_leaves(t)]
+                     for k, t in (("params", tr.params),
+                                  ("err", getattr(tr, "_err_stack", None)))
+                     if t is not None}
+    torch.cuda.synchronize()
+    n_params.append(count())
+    gl2 = counters["group_l2_norms"]
+    return dict(exp=exp, tr=tr, hist=list(exp.history), first=first,
+                assignments=assignments, n_params=n_params,
+                leaves=len(tree_leaves(tr.params)),
+                tally=tally_of(counters),
+                launches=dict({k: fn.launches for k, fn in counters.items()},
+                              group_l2_norms_bwd=gl2.bwd_launches),
+                local_s=list(tr.round_seconds) or [sum(tr.step_seconds)],
+                peak=torch.cuda.max_memory_allocated(dev))
+
+
+def want_launches(run, engine, hierarchical):
+    """The launches a run must make, from its availability records: a
+    client step is 101 forward and 99 dx matmul launches and 6 attention
+    launches; the sequential engine runs each client's budget, the
+    vectorized one max(budget) batched steps a round (the steps no
+    client reaches are not run); FedPhD's sparse rounds (r < R_s = 2)
+    add one group-L2 launch and one backward a step, the prune one
+    group-L2 launch."""
+    fwd, dx = U_NET_GEMMS
+    steps = sparse = 0
+    for h in run["hist"]:
+        budgets = h.availability["budgets"] if h.availability else [
+            run["tr"].clients[c].data.steps_per_epoch for c in h.selected]
+        n = sum(budgets) if engine == "sequential" else max(budgets,
+                                                            default=0)
+        steps += n
+        sparse += n if hierarchical and h.round < 2 else 0
+    prunes = sum(h.pruned for h in run["hist"])
+    return {"block_masked_matmul": steps * (fwd + dx),
+            "flash_attention": steps * U_NET_ATTENTION,
+            "group_l2_norms": sparse + prunes, "group_l2_norms_bwd": sparse,
+            "rglru_scan": 0}
+
+
+def counted_comm(run, quant="none", flat_method=None):
+    """Each round's ``(comm_gb, comm_up_gb, comm_down_gb)`` counted here
+    from its availability record, FedPhD's edge assignment and the
+    parameter counts, in the trainer's order of summation: the on-time
+    uplink ``n + 4 L`` bytes when quantized (n parameters, L leaves),
+    else ``4 n``, late uploads ``4 n``, downloads ``4 n`` to every
+    arrived client; FedPhD's edges send ``4 n`` to the cloud and the
+    cloud ``4 n'`` back to each edge (n' after the prune); the flat
+    methods send and receive through ``edge_cloud``, SCAFFOLD ``4 n``
+    more each way."""
+    comm, out = run["tr"].comm, []
+    L = run["leaves"]
+    for i, h in enumerate(run["hist"]):
+        av = h.availability
+        n, n_post = run["n_params"][i], run["n_params"][i + 1]
+        up_f = 4 * n
+        up_q = up_f if quant == "none" else n + 4 * L
+        done = set(h.selected) if av is None else \
+            set(av["arrived"]) - set(av["dropped"])
+        late = set() if av is None else set(av["late"])
+        arrived = set(h.selected) if av is None else set(av["arrived"])
+        up = down = 0.0
+        if flat_method is not None:
+            extra = 4 * n if flat_method == "scaffold" else 0
+            if av is None:
+                up = len(h.selected) * comm.edge_cloud(up_q + extra)
+                down = len(h.selected) * comm.edge_cloud(4 * n + extra)
+            else:
+                up = len(done - late) * comm.edge_cloud(up_q + extra) \
+                    + len(done & late) * comm.edge_cloud(up_f + extra)
+                down = len(arrived) * comm.edge_cloud(4 * n + extra)
+        else:
+            asg = run["assignments"][i]
+            for e, cids in asg.items():
+                for c in cids:
+                    if c in done:
+                        up += comm.client_edge(up_f if c in late else up_q)
+            for e, cids in asg.items():
+                if cids:
+                    down += comm.client_edge(4 * n) * len(arrived & set(cids))
+            edges = [e for e, c in asg.items() if c] if i == 0 \
+                else list(asg)
+            for _ in edges:
+                up += comm.edge_cloud(up_f)
+            down += comm.edge_cloud(4 * n_post) * len(asg)
+        out.append((up / 1e9 + down / 1e9, up / 1e9, down / 1e9))
+    return out
+
+
+def mixed_rounds(run):
+    """The rounds of ``run`` in which one aggregate (a FedPhD edge, or
+    the flat server) took an on-time reporter and buffered a late
+    client."""
+    out = []
+    for i, h in enumerate(run["hist"]):
+        av = h.availability
+        late = set(av["late"])
+        on_time = set(av["arrived"]) - set(av["dropped"]) - late
+        groups = run["assignments"][i].values() if run["assignments"] \
+            else [h.selected]
+        if any(set(c) & on_time and set(c) & late for c in groups):
+            out.append(h.round)
+    return out
+
+
+def tree_max_diff(a, b):
+    from repro_torch.tree import tree_leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def trees_equal(a, b):
+    import torch
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b),
+                                                 strict=True))
+
+
+def resume_run(spec, dev, counters, zero_counters, tally):
+    """``runner --spec`` for one round into a temporary ``--out``, then
+    ``--resume`` to the spec's last round: the resumed experiment, the
+    seconds and the checkpoint's bytes; the launches go to ``tally``."""
+    from repro_torch.experiment import runner
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spec.json")
+        with open(path, "w") as f:
+            f.write(spec.to_json())
+        out = os.path.join(tmp, "out")
+        zero_counters()
+        t0 = time.perf_counter()
+        runner.main(["--spec", path, "--rounds", "1", "--out", out,
+                     "--device", dev.type])
+        back = runner.main(["--out", out, "--resume", "--rounds",
+                            str(spec.fl.rounds), "--device", dev.type])
+        wall = time.perf_counter() - t0
+        merge_tally(tally, tally_of(counters))
+        return back, wall, os.path.getsize(os.path.join(out, "ckpt.npz"))
+
+
+def faults_phase(dev, counters, zero_counters):
+    """Fault injection on the card (``faults``): on the ``train`` cell,
+    the experiment seed FAULT_SEED, through the experiment API: FedPhD
+    (SH aggregation) under FAULT_SPEC and ``fedphd-stale`` under
+    FAULT_STALE for 3 rounds (sparse, the prune, compacted) and
+    ``fedavg-stale`` under FAULT_STALE for 2, on each engine.  Per run:
+    each round's availability, loss and bytes;
+    ``comm_gb`` equal to the count of :func:`counted_comm`; exactly the
+    launches of :func:`want_launches`.  Between the engines: the
+    availability, selections and bytes identical, each round's loss
+    within TRAIN_LOSS_RTOL, the params (and late deltas) within
+    TRAIN_PARAMS_ATOL.  ``faults_resume``: ``fedphd-stale`` killed after
+    round 1 and resumed through the runner, bit for bit against the
+    unbroken vectorized run (history with availability, params, late
+    deltas, the fault stream).  The runs must show a dropped client and
+    a late one, and each staleness run a round in which one aggregate
+    took an on-time reporter and buffered a late client.  Returns the
+    tally of every launch."""
+    import numpy as np
+    from repro_torch.experiment.registry import method_entry
+
+    register_baseline_data()
+    tally, vec_runs, rounds_seen = {}, {}, []
+    for method, rounds, fault in FAULT_RUNS:
+        hier = method_entry(method).topology == "hierarchical"
+        runs = {}
+        for engine in TRAIN_ENGINES:
+            run = fl_run(fl_spec(method, engine, rounds, fault=fault,
+                                 seed=FAULT_SEED),
+                         dev, counters, zero_counters)
+            runs[engine] = run
+            merge_tally(tally, run["tally"])
+            hist = run["hist"]
+            counted = counted_comm(run, flat_method=None if hier
+                                   else method.split("-")[0])
+            want = want_launches(run, engine, hier)
+            mixed = mixed_rounds(run)
+            emit("faults", method=method, engine=engine,
+                 fault=fault, seed=FAULT_SEED, rounds=len(hist),
+                 availability=[h.availability for h in hist],
+                 mixed_rounds=mixed,
+                 loss=[h.loss for h in hist],
+                 comm_gb=[h.comm_gb for h in hist],
+                 comm_gb_counted=[c[0] for c in counted],
+                 comm_up_gb=[h.comm_up_gb for h in hist],
+                 params_m=[h.params_m for h in hist],
+                 pruned=[h.pruned for h in hist],
+                 launches=run["launches"], launches_want=want,
+                 local_s=run["local_s"], peak_mem_bytes=run["peak"])
+            rounds_seen += [h.availability for h in hist]
+            require(len(hist) == rounds
+                    and all(np.isfinite(h.loss) for h in hist),
+                    f"faults {method} {engine}: losses "
+                    f"{[h.loss for h in hist]}")
+            require([(h.comm_gb, h.comm_up_gb, h.comm_down_gb)
+                     for h in hist] == counted,
+                    f"faults {method} {engine}: bytes "
+                    f"{[h.comm_gb for h in hist]}, counted {counted}")
+            require(run["launches"] == want,
+                    f"faults {method} {engine}: launches {run['launches']}"
+                    f", want {want}")
+            require(not hier or [h.pruned for h in hist]
+                    == [False, True, False],
+                    f"faults {method} {engine}: the prune round "
+                    f"{[h.pruned for h in hist]}")
+            require(mixed or not method.endswith("-stale"),
+                    f"faults {method} {engine}: no aggregate took an "
+                    f"on-time reporter and a late client")
+        seq, vec = runs["sequential"], runs["vectorized"]
+        vec_runs[method] = vec
+        keys = ("selected", "availability", "comm_gb", "comm_up_gb",
+                "comm_down_gb", "params_m")
+        same = [[getattr(h, k) for k in keys] for h in seq["hist"]] == \
+            [[getattr(h, k) for k in keys] for h in vec["hist"]]
+        rel = [abs(a.loss - b.loss) / max(abs(a.loss), 1e-30)
+               for a, b in zip(seq["hist"], vec["hist"])]
+        diff = tree_max_diff(seq["tr"].params, vec["tr"].params)
+        seq_late, vec_late = (r["tr"].late_buffers() for r in (seq, vec))
+        late_diff = [tree_max_diff(seq_late[e], vec_late[e])
+                     for e in vec_late]
+        emit("faults_engines", method=method, same_records=same,
+             loss_rel_err=rel, loss_rtol=TRAIN_LOSS_RTOL,
+             max_abs_param_diff=diff, late_max_abs_diff=late_diff,
+             params_atol=TRAIN_PARAMS_ATOL)
+        require(same, f"faults_engines {method}: availability, selections "
+                      f"or bytes differ")
+        require(max(rel) <= TRAIN_LOSS_RTOL,
+                f"faults_engines {method}: losses {rel} relative")
+        require(seq_late.keys() == vec_late.keys()
+                and max([diff] + late_diff) <= TRAIN_PARAMS_ATOL,
+                f"faults_engines {method}: params {diff}, late deltas "
+                f"{late_diff}")
+        del runs, seq
+    dropped = [i for i, a in enumerate(rounds_seen) if a["dropped"]]
+    late = [i for i, a in enumerate(rounds_seen) if a["late"]]
+    require(dropped and late, f"faults: seed {FAULT_SEED} gave no dropped "
+                              f"or no late client: {rounds_seen}")
+
+    whole = vec_runs[FAULT_RESUMED]
+    back, wall, nbytes = resume_run(
+        fl_spec(FAULT_RESUMED, "vectorized", 3, fault=FAULT_STALE,
+                seed=FAULT_SEED), dev, counters, zero_counters, tally)
+    a, b = whole["tr"], back.trainer
+    a_late, b_late = a.late_buffers(), b.late_buffers()
+    same_hist = [h.to_dict() for h in back.history] == \
+        [h.to_dict() for h in whole["hist"]]
+    equal = {"params": trees_equal(a.params, b.params),
+             "late": a_late.keys() == b_late.keys() and all(
+                 trees_equal(a_late[e], b_late[e]) for e in a_late),
+             "fault_stream": a._faults.state() == b._faults.state()}
+    emit("faults_resume", method=FAULT_RESUMED, history_equal=same_hist,
+         bitwise=equal, wall_s=wall, ckpt_bytes=nbytes,
+         availability=[h.availability for h in back.history])
+    require(same_hist and all(equal.values()),
+            f"faults_resume: history equal {same_hist}, {equal}")
+    return tally
+
+
+def uplink_scales(quant):
+    """Wraps the sequential FedPhD's uplink round trip to record, for
+    each client and leaf, the widest gap between two neighbouring codes
+    (int8: the scale; fp8: 32 scales, its step in [256, 448]): the bound
+    of :func:`quant_phase`'s engine check.  It is taken on the untimed
+    sequential run, so that no vectorized run is timed with it.
+    Returns (the list it fills, a list of leaves a client, and the
+    function to undo the wrap)."""
+    from repro_torch.core import hfl
+    from repro_torch.fl import compress
+    from repro_torch.tree import tree_leaves
+    inner, scales = hfl.ef_roundtrip, []
+
+    def wrapped(trained, err, q, *, start):
+        scales.append([float(((y.float() - x.float()) + e).abs().max())
+                       / compress._QMAX[q] * QUANT_STEP[q]
+                       for y, x, e in zip(tree_leaves(trained),
+                                          tree_leaves(start),
+                                          tree_leaves(err), strict=True)])
+        return inner(trained, err, q, start=start)
+    hfl.ef_roundtrip = wrapped
+    return scales, lambda: setattr(hfl, "ef_roundtrip", inner)
+
+
+def quantizer_check(dev, params):
+    """The card's quantizer against the CPU's on the same inputs, for
+    int8 and fp8: ``ef_roundtrip_stacked`` of 2 clients' fp32 delta rows
+    (deltas of 1e-3, error rows of 1e-4), and ``ef_roundtrip`` of one,
+    in the shapes of ``params``, with two
+    leaves more: exact .5 ties (int8)
+    or ties between fp8 neighbours at scale 1, and deltas far beyond
+    +-448.  Payloads, dequantized deltas and residuals bitwise."""
+    import torch
+    from repro_torch.fl.compress import ef_roundtrip, ef_roundtrip_stacked
+    from repro_torch.tree import tree_map
+    cpu = torch.device("cpu")
+    gen = torch.Generator(dev)
+    gen.manual_seed(11)
+    ties = {"int8": [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, 3.25],
+            "fp8": [448.0, 1.0625, 1.1875, 17.0, 432.0, -432.0,
+                    3 * 2.0 ** -10, 1e-4, -300.0]}
+    out = {}
+    for quant in ("int8", "fp8"):
+        delta = tree_map(lambda p: torch.randn(
+            (2,) + tuple(p.shape), generator=gen, device=dev) * 1e-3, params)
+        delta["ties"] = torch.tensor([ties[quant]] * 2, device=dev)
+        delta["over"] = torch.randn((2, 4096), generator=gen,
+                                    device=dev) * 1e4
+        err = tree_map(lambda d: torch.randn(
+            d.shape, generator=gen, device=dev) * 1e-4, delta)
+        err["ties"].zero_()
+        cpu_of = lambda t: tree_map(lambda x: x.to(cpu), t)
+        got = ef_roundtrip_stacked(delta, err, quant)
+        want = ef_roundtrip_stacked(cpu_of(delta), cpu_of(err), quant)
+        one = tree_map(lambda x: x[1], delta)
+        got1 = ef_roundtrip(one, tree_map(lambda x: x[1], err), quant)
+        want1 = ef_roundtrip(cpu_of(one), cpu_of(tree_map(lambda x: x[1],
+                                                          err)), quant)
+        out[quant] = all(trees_equal(cpu_of(g), w) for g, w in
+                         zip(got + got1, want + want1))
+        del delta, err, got, want, got1, want1
+    emit("quant", run="quantizer card vs cpu", bitwise=out,
+         leaves=len(params) + 2)
+    require(all(out.values()), f"quant: the card's quantizer differs from "
+                               f"the CPU's: {out}")
+
+
+def quant_phase(dev, counters, zero_counters):
+    """The quantized uplink with error feedback on the card
+    (``quant``), on the ``train`` cell through the experiment API,
+    without faults: FedPhD in int8 for 3 rounds (through the prune) and
+    fp8 for 2 on the vectorized engine, and one round of each on the
+    sequential engine against the vectorized run's first; SCAFFOLD in
+    int8 for 2 rounds and fp8 for 1, vectorized.  Each round's bytes
+    equal :func:`counted_comm`'s (the on-time uplink ``n + 4 L`` bytes,
+    its ratio to the fp32 uplink ``4 n`` reported), exact launches,
+    finite losses.  Sequential against vectorized: the bytes identical,
+    the loss within TRAIN_LOSS_RTOL, each leaf of the params within
+    TRAIN_PARAMS_ATOL plus its largest quantization bucket, and
+    TRAIN_PARAMS_BULK[1] of them within TRAIN_PARAMS_BULK[0] plus it.
+    ``quant_resume``: FedPhD int8 killed after round 1 and resumed,
+    its params, error-feedback rows and history bit for bit.  Then the
+    card's quantizer against the CPU's (:func:`quantizer_check`).
+    Returns the tally of every launch."""
+    import numpy as np
+    import torch
+    from repro_torch.experiment.registry import method_entry
+    from repro_torch.tree import tree_leaves
+
+    register_baseline_data()
+    tally, whole = {}, {}
+    for method, quant, rounds in QUANT_RUNS:
+        hier = method_entry(method).topology == "hierarchical"
+        run = fl_run(fl_spec(method, "vectorized", rounds, quant=quant),
+                     dev, counters, zero_counters)
+        merge_tally(tally, run["tally"])
+        hist = run["hist"]
+        counted = counted_comm(run, quant, None if hier else method)
+        want = want_launches(run, "vectorized", hier)
+        n, L = run["n_params"][0], run["leaves"]
+        extra = 4 * n if method == "scaffold" else 0
+        emit("quant", method=method, quant=quant, engine="vectorized",
+             rounds=len(hist), loss=[h.loss for h in hist],
+             comm_gb=[h.comm_gb for h in hist],
+             comm_up_gb=[h.comm_up_gb for h in hist],
+             comm_up_gb_counted=[c[1] for c in counted],
+             uplink_bytes=n + 4 * L + extra, uplink_bytes_fp32=4 * n + extra,
+             uplink_ratio=(n + 4 * L + extra) / (4 * n + extra),
+             params_m=[h.params_m for h in hist],
+             launches=run["launches"], launches_want=want,
+             local_s=run["local_s"], peak_mem_bytes=run["peak"],
+             err_rows_max_abs=float(max(
+                 x.abs().max() for x in tree_leaves(run["tr"]._err_stack))))
+        require(all(np.isfinite(h.loss) for h in hist)
+                and len(hist) == rounds,
+                f"quant {method} {quant}: losses {[h.loss for h in hist]}")
+        require([(h.comm_gb, h.comm_up_gb, h.comm_down_gb)
+                  for h in hist] == counted,
+                f"quant {method} {quant}: bytes {[h.comm_gb for h in hist]}"
+                f", counted {counted}")
+        require(run["launches"] == want,
+                f"quant {method} {quant}: launches {run['launches']}, "
+                f"want {want}")
+        if method != "fedphd":
+            continue
+        whole[quant] = run
+        scales, undo = uplink_scales(quant)
+        try:
+            seq = fl_run(fl_spec(method, "sequential", rounds, quant=quant),
+                         dev, counters, zero_counters, rounds=1)
+        finally:
+            undo()
+        merge_tally(tally, seq["tally"])
+        a, b = seq["hist"][0], hist[0]
+        # each leaf's widest bucket over round 1's clients
+        bucket = [max(leaf) for leaf in zip(*scales)]
+        diffs, bulk = [], []
+        for x, y, s in zip(seq["first"]["params"], run["first"]["params"],
+                           bucket, strict=True):
+            d = (x - y).abs()
+            diffs.append(float(d.max()) - s)
+            bulk.append(float((d <= TRAIN_PARAMS_BULK[0] + s).float().sum()))
+        share = sum(bulk) / run["n_params"][0]
+        rel = abs(a.loss - b.loss) / abs(b.loss)
+        emit("quant_engines", method=method, quant=quant,
+             comm_gb=[a.comm_gb, b.comm_gb], loss_rel_err=rel,
+             max_abs_param_diff_over_bucket=max(diffs),
+             largest_bucket=max(bucket), params_within_bucket_bulk=share,
+             err_rows_max_abs_diff=max(
+                 float((x - y).abs().max()) for x, y in zip(
+                     seq["first"]["err"], run["first"]["err"])),
+             launches_sequential=seq["launches"])
+        require((a.selected, a.comm_gb, a.comm_up_gb, a.comm_down_gb)
+                == (b.selected, b.comm_gb, b.comm_up_gb, b.comm_down_gb),
+                f"quant_engines {quant}: selections or bytes differ")
+        require(rel <= TRAIN_LOSS_RTOL,
+                f"quant_engines {quant}: loss {rel} relative")
+        require(max(diffs) <= TRAIN_PARAMS_ATOL
+                and share >= TRAIN_PARAMS_BULK[1],
+                f"quant_engines {quant}: params beyond a bucket by "
+                f"{max(diffs)}, {share} within {TRAIN_PARAMS_BULK[0]} of it")
+        del seq
+
+    run = whole[QUANT_RESUMED]
+    back, wall, nbytes = resume_run(
+        fl_spec("fedphd", "vectorized", 3, quant=QUANT_RESUMED), dev,
+        counters, zero_counters, tally)
+    a, b = run["tr"], back.trainer
+    same_hist = [h.to_dict() for h in back.history] == \
+        [h.to_dict() for h in run["hist"]]
+    equal = {"params": trees_equal(a.params, b.params),
+             "err_rows": trees_equal(a._err_stack, b._err_stack)}
+    err_max = max(float(x.abs().max()) for x in tree_leaves(b._err_stack))
+    emit("quant_resume", method="fedphd", quant=QUANT_RESUMED,
+         history_equal=same_hist, bitwise=equal, wall_s=wall,
+         ckpt_bytes=nbytes, err_rows_max_abs=err_max)
+    require(same_hist and all(equal.values()) and err_max > 0,
+            f"quant_resume: history equal {same_hist}, {equal}, error "
+            f"rows up to {err_max}")
+    quantizer_check(dev, b.params)
+    whole.clear()
+    del back, a, b, run
+    torch.cuda.empty_cache()
+    return tally
+
+
+def quant_memory_phase(dev):
+    """FedPhD with the int8 uplink over the paper preset's round (20
+    clients, 2 edges, batch 32) cut to one step a client, in chunks of
+    the k ``client_chunk`` picks for the paper preset's 8 steps with the
+    uplink's rows counted, the 20 error-feedback rows on the card: its
+    peak, less what was allocated before the trainer, must not exceed
+    ``round_bytes``' estimate nor the card.  The fp32 uplink's k is
+    given beside it."""
+    import torch
+    from repro_torch.configs import CIFAR10_UNET
+    from repro_torch.core.hfl import FedPhD
+    from repro_torch.data import (CIFAR10_LIKE, ClientData, make_dataset,
+                                  shards_per_client)
+    from repro_torch.experiment.runner import PRESETS
+    from repro_torch.fl.client import Client
+    from repro_torch.fl.engine import (client_chunk, make_round_engine,
+                                       round_bytes)
+    from repro_torch.kernels.block_masked_matmul import ops as bmm
+
+    cfg = CIFAR10_UNET.replace(precision="fp32")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    ds = dataclasses.replace(CIFAR10_LIKE, samples_per_class=64)
+    images, labels = make_dataset(ds, seed=0)
+    parts = shards_per_client(labels, PAPER_CLIENTS, 2, seed=0)
+    clients = [Client(i, ClientData(images[p], labels[p],
+                                    batch_size=TRAIN_BATCH, seed=i),
+                      ds.num_classes) for i, p in enumerate(parts)]
+    img = (TRAIN_BATCH,) + IMAGE
+    fl = dataclasses.replace(PRESETS["paper"].fl, rounds=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = FedPhD(cfg, fl, clients, lr=TRAIN_LR, engine="vectorized",
+                quant="int8", device=dev)
+    stored = tr._stored_copies()
+    paper = (PAPER_CLIENTS, PAPER_STEPS) + img
+    k = client_chunk(cfg, paper, total, edges=fl.num_edges, stored=stored,
+                     quant=True)
+    k_fp32 = client_chunk(cfg, paper, total, edges=fl.num_edges)
+    # one step a client would fit more clients a chunk: hold the engine
+    # to the paper preset's k
+    tr._engine_sparse = make_round_engine(cfg, fl, sparse=True,
+                                          groups=tr.groups, lr=TRAIN_LR,
+                                          max_clients=k, quant="int8")
+    estimate = round_bytes(cfg, (PAPER_CLIENTS, 1) + img, k,
+                           edges=fl.num_edges, stored=stored, quant=True)
+    bmm.block_masked_matmul.shapes.clear()
+    t0 = time.perf_counter()
+    tr.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    chunks = sorted({key[5] for key in bmm.block_masked_matmul.shapes
+                     if len(key) > 5})
+    emit("quant_memory", quant="int8", clients=PAPER_CLIENTS,
+         steps_per_client=1, chunk=k, chunk_fp32=k_fp32,
+         chunk_clients=chunks, stored_copies=stored,
+         estimate_bytes=estimate, peak_mem_bytes=peak, base_mem_bytes=base,
+         total_mem_bytes=total, loss=tr.history[0].loss, round_s=seconds,
+         comm_up_gb=tr.history[0].comm_up_gb)
+    del tr, clients
+    torch.cuda.empty_cache()
+    require(chunks and max(chunks) == k,
+            f"quant_memory: chunks at {chunks}, want k = {k}")
+    require(peak - base <= estimate,
+            f"quant_memory: peak {peak} less {base} above the estimate "
+            f"{estimate}")
+    require(peak < total, f"quant_memory: peak {peak} of {total}")
+
+
 PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",
                                                 "splitk_sum_kernel")),
                       ("flash_attention", ("flash_simt_kernel",
@@ -2163,6 +2867,8 @@ def run(out_dir: str, profile: bool = False) -> dict:
     train_tallies, train_runs = train_phase(cfg, dev, counters,
                                             zero_counters)
     tallies.update(train_tallies)
+    tallies["train_bf16"] = train_bf16_phase(
+        cfg, dev, counters, zero_counters, train_runs["vectorized"][0])
 
     # -- 5-7. RecurrentGemma serving: full model, then depth 5 in fp32 -------
     from repro_torch.configs import get_config
@@ -2191,6 +2897,10 @@ def run(out_dir: str, profile: bool = False) -> dict:
     # -- 7c. the flat baselines on both engines, resumed; centralized ------
     tallies["baselines"] = baselines_phase(dev, counters, zero_counters)
     centralized_phase(dev)
+
+    # -- 7d-7e. faults and the quantized uplink on both trainers ---------
+    tallies["faults"] = faults_phase(dev, counters, zero_counters)
+    tallies["quant"] = quant_phase(dev, counters, zero_counters)
     require(all(sum(tallies[MAIN_PATHS[k]][k].values()) > 0
                 for k in counters),
             f"a kernel was not launched on its main path: "
@@ -2329,6 +3039,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
     del train_runs
     engine_memory_phase(cfg, rparams, gen, dev)
     baselines_memory_phase(dev)
+    quant_memory_phase(dev)
 
     # -- 9. full-width forward: kernels vs plain versions --------------------
     # The plain forward runs on CPU copies: device dispatch picks the plain

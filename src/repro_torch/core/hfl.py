@@ -22,6 +22,15 @@ the round's clients in one client-batched step a batch, one loss sync a
 round) or the sequential one (a client at a time, one step a batch).
 Both consume the generator's draws in the same order.
 
+Faults (``fault=``, :mod:`repro_torch.fl.faults`) draw each round's
+arrivals, dropouts and step budgets from a numpy stream of their own:
+budgets truncate local training, only reporting clients enter their
+edge's aggregate (an edge with none keeps its model), and under
+``aggregation="staleness"`` a straggler's delta is buffered and merged
+into its edge's next aggregate.  ``quant`` ("int8", "fp8") quantizes the
+on-time clients' uplink with per-client error feedback
+(:mod:`repro_torch.fl.compress`).
+
 ``eval_fn(params, cfg, round)`` runs every ``eval_every`` rounds after
 the round's record is appended, its result in ``RoundRecord.eval``.
 ``state()`` and ``restore()`` carry everything the trajectory depends
@@ -30,9 +39,8 @@ the packages both ways; the port adds the generator's state
 (``torch_rng``), the one stream that cannot cross.  A resumed run is
 bitwise equal to an unbroken one on the CPU.
 
-Not ported yet, and refused: meshes (ROADMAP A.13), fault injection and
-staleness, quantized uplinks (A.10); tracing (A.11) is refused by the
-experiment API.
+Not ported yet, and refused: meshes (ROADMAP A.13); tracing (A.11) is
+refused by the experiment API.
 """
 from __future__ import annotations
 
@@ -47,8 +55,7 @@ from repro_torch.configs.base import (FLConfig, ModelConfig,
                                       config_from_dict, config_to_dict)
 from repro_torch.convert import params_from_jax
 from repro_torch.core.aggregation import (aggregate_fedavg, aggregate_sh,
-                                          fedavg_weights, normalize_weights,
-                                          sh_weights)
+                                          fedavg_weights, sh_weights)
 from repro_torch.core.pruning import (compact, l2_scores, make_masks,
                                       random_scores, unet_groups)
 from repro_torch.core.selection import random_selection, select_edge
@@ -59,19 +66,23 @@ from repro_torch.device import resolve_device
 from repro_torch.experiment.resolve import resolve_engine, resolve_precision
 from repro_torch.fl.client import Client, make_local_step, run_local
 from repro_torch.fl.comm import CommModel
+from repro_torch.fl.compress import (QUANTS, downlink_bytes, ef_roundtrip,
+                                     uplink_bytes)
 from repro_torch.fl.engine import (adam_stack_from_tree, draw_round,
                                    make_round_engine, resolve_store,
-                                   route_engine, stack_trees,
-                                   stacked_adam_init, store_tree,
-                                   tree_gather, tree_scatter)
-from repro_torch.fl.compress import QUANTS, downlink_bytes, uplink_bytes
+                                   route_engine, scatter_rows, stack_trees,
+                                   stacked_adam_init, stacked_zeros,
+                                   store_tree, tree_gather, tree_scatter)
+from repro_torch.fl.faults import (FaultSpec, edge_weight_rows, late_delta,
+                                   late_shares, make_fault_model,
+                                   merge_late)
 from repro_torch.fl.record import RoundRecord, RunResult, evals_of
 from repro_torch.models import model
 from repro_torch.optim import adam_init
 from repro_torch.tree import tree_leaves, tree_map
 
 SELECTIONS = ("sh", "random")
-AGGREGATIONS = ("sh", "fedavg")
+AGGREGATIONS = ("sh", "fedavg", "staleness")
 
 
 def prng_key(seed: int) -> np.ndarray:
@@ -86,7 +97,9 @@ class FedPhD:
     """The FedPhD trainer.
 
     selection: "sh" (Eq. 25) or "random"; aggregation: "sh" (Eqs.
-    21-24) or "fedavg".  ``prune=False`` trains the dense model
+    21-24), "fedavg", or "staleness" (FedAvg over the on-time reporters
+    and the late deltas merged a round later).  ``prune=False`` trains
+    the dense model
     throughout.  ``device`` is where the model trains: ``"cuda"`` (the
     default; the kernels) or ``"cpu"`` (their plain versions).
 
@@ -104,9 +117,10 @@ class FedPhD:
     (:func:`repro_torch.fl.engine.resolve_store`).
     eval_fn/eval_every: ``eval_fn(params, cfg, round)`` is called every
     ``eval_every`` rounds and its result stored in ``RoundRecord.eval``.
-    mesh, fault, quant: the reference's; anything but None, a disabled
-    fault spec and "none" raises NotImplementedError (ROADMAP A.13,
-    A.10).
+    fault: a :class:`repro_torch.fl.faults.FaultSpec`; a disabled one is
+    None.  quant: the uplink's dtype, "none", "int8" or "fp8".
+    mesh: the reference's; anything but None raises NotImplementedError
+    (ROADMAP A.13).
     """
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, clients: List[Client],
@@ -115,20 +129,14 @@ class FedPhD:
                  lr: float = 2e-4, engine: Optional[str] = None,
                  persistent_opt: bool = False, state_store: str = "auto",
                  mesh=None, eval_fn: Optional[Callable] = None,
-                 eval_every: int = 0, fault=None, quant: str = "none",
-                 device="cuda"):
+                 eval_every: int = 0, fault: Optional[FaultSpec] = None,
+                 quant: str = "none", device="cuda"):
         if mesh is not None:
             raise NotImplementedError("FedPhD(mesh=...): the mesh-sharded "
                                       "client axis is ROADMAP A.13")
-        if fault is not None and fault.enabled:
-            raise NotImplementedError("FedPhD(fault=...): fault injection "
-                                      "and staleness are ROADMAP A.10")
         if quant not in QUANTS:
             raise ValueError(f"unknown quant {quant!r}; expected one of "
                              f"{QUANTS}")
-        if quant != "none":
-            raise NotImplementedError(f"FedPhD(quant={quant!r}): the "
-                                      f"quantized uplink is ROADMAP A.10")
         if selection not in SELECTIONS:
             raise ValueError(f"selection {selection!r} not in {SELECTIONS}")
         if aggregation not in AGGREGATIONS:
@@ -136,6 +144,7 @@ class FedPhD:
                              f"{AGGREGATIONS}")
         self.device = resolve_device(device)
         self.cfg = cfg.replace(precision=resolve_precision(cfg.precision))
+        self.quant = quant
         self.fl = fl
         self.clients = clients
         self.selection = selection
@@ -154,6 +163,13 @@ class FedPhD:
         self.np_rng = np.random.default_rng(rng_seed)
         self.gen = torch.Generator(self.device)
         self.gen.manual_seed(rng_seed)
+        # a disabled (or absent) spec makes no model: every fault branch
+        # below falls back to the fault-free path
+        self.fault = fault if (fault is not None and fault.enabled) else None
+        self._faults = make_fault_model(self.fault, len(clients), rng_seed)
+        # staleness: each edge's buffered late-delta sum, merged into its
+        # next aggregate (dropped at the prune, where the shapes change)
+        self._late_buf: Dict[int, dict] = {}
 
         num_classes = clients[0].num_classes
         self.q_u = uniform_target(num_classes)
@@ -197,11 +213,13 @@ class FedPhD:
             lr=self.lr) if sparse else None
         self.step_plain = make_local_step(self.cfg, self.fl, sparse=False,
                                           lr=self.lr)
+        kw = dict(lr=self.lr, stored=self._stored_copies(),
+                  quant=self.quant)
         self._engine_sparse = make_round_engine(
             self.cfg, self.fl, sparse=True, groups=self.groups,
-            lr=self.lr) if sparse else None
+            **kw) if sparse else None
         self._engine_plain = make_round_engine(self.cfg, self.fl,
-                                               sparse=False, lr=self.lr)
+                                               sparse=False, **kw)
         # one Adam zero-state per model shape, shared by every client of
         # the sequential engine
         self._opt_zero = adam_init(self.params)
@@ -211,15 +229,36 @@ class FedPhD:
         self._opt_stack = stacked_adam_init(
             self.params, len(self.clients), host=self._store == "host") \
             if self.persistent_opt else None
+        # the quantized uplink's per-client fp32 error-feedback rows,
+        # reset here, at the prune, where the leaf shapes change
+        self._err_stack = stacked_zeros(
+            self.params, len(self.clients), dtype=torch.float32,
+            host=self._store == "host") if self.quant != "none" else None
+
+    def _stored_copies(self) -> int:
+        """fp32 model copies this trainer keeps on the card across
+        rounds, for the engine's chunk size: the persistent Adam rows and
+        the error-feedback rows of the N clients (when on the card), and
+        the edges' late-delta sums."""
+        rows = 0 if self._store == "host" else len(self.clients) * (
+            2 * self.persistent_opt + (self.quant != "none"))
+        return rows + self.fl.num_edges * (self.aggregation == "staleness")
 
     # -- bookkeeping ----------------------------------------------------------
     def _param_count_m(self) -> float:
         return sum(t.numel() for t in tree_leaves(self.params)) / 1e6
 
     def _wire_bytes(self):
-        """(fp32 upload, compute-dtype download) bytes per transfer."""
-        return (uplink_bytes(self.params),
+        """Bytes a transfer: ``(up, up_late, down)``, the on-time uplink
+        (quantized: payload and scales), the fp32 uplink of late clients
+        and of the edges, and the compute-dtype download."""
+        return (uplink_bytes(self.params, self.quant),
+                uplink_bytes(self.params, "none"),
                 downlink_bytes(self.params, self.cfg.precision))
+
+    def late_buffers(self) -> Dict[int, dict]:
+        """The buffered late-delta sums (staleness), edge -> tree."""
+        return dict(self._late_buf)
 
     # -- local training + edge aggregation (Alg. 1 lines 7-21) ---------------
     def _use_vectorized(self, round_clients) -> bool:
@@ -233,13 +272,25 @@ class FedPhD:
         return store_tree(tree_gather(self._opt_stack, idx), "device",
                           self.device)
 
-    def _local_and_edge_sequential(self, r, assignment, sparse_round, wire):
+    def _err_rows(self, idx):
+        """The error-feedback rows of clients ``idx``, on the device."""
+        return store_tree(tree_gather(self._err_stack, idx), "device",
+                          self.device)
+
+    def _local_and_edge_sequential(self, r, assignment, sparse_round, wire,
+                                   faults=None):
         """One client after another, one step a batch; Python
-        aggregation per edge."""
+        aggregation per edge.  Under ``faults`` a client runs its budget
+        of steps (its shuffles still drain), only reporting clients
+        enter the edge's aggregate and send, and late clients' deltas are
+        buffered for the edge's next aggregate.  With ``quant`` each
+        on-time reporter's delta makes the error-feedback round trip and
+        the edge aggregates ``start + deq``; late deltas stay fp32."""
         fl = self.fl
-        up, down = wire
+        up_q, up_f, down = wire
         step_fn = self.step_sparse if sparse_round else self.step_plain
         round_losses: List[float] = []
+        loss_mask: List[bool] = []
         up_bytes, down_bytes = 0.0, 0.0
         for e, cids in assignment.items():
             if not cids:
@@ -247,48 +298,86 @@ class FedPhD:
             edge_model = self.params if self._edge_models is None \
                 else self._edge_models.get(e, self.params)
             client_models, counts, mus = [], [], []
+            late_models, late_counts = [], []
+            n_arrived = 0
             for cid in cids:
                 cl = self.clients[cid]
+                budget = faults.budget_of(cid) if faults else None
                 opt_in = self._opt_rows(int(cid)) if self.persistent_opt \
                     else self._opt_zero
                 p, opt_out, loss = run_local(step_fn, edge_model, cl,
                                              epochs=fl.local_epochs,
                                              generator=self.gen,
                                              opt_state=opt_in,
+                                             max_steps=budget,
                                              step_seconds=self.step_seconds)
-                if self.persistent_opt:
+                completed = faults is None or faults.completed_of(cid)
+                late = faults is not None and faults.late_of(cid)
+                if self.persistent_opt and completed:
                     self._opt_stack = tree_scatter(self._opt_stack,
                                                    int(cid), opt_out)
                 round_losses.append(loss)
-                self.edges[e].update(cl.q_n, cl.n_samples)      # Eq. 19
-                up_bytes += self.comm.client_edge(up)          # upload
-                client_models.append(p)
-                counts.append(cl.n_samples)
-                mus.append(sh_score(cl.q_n, self.q_u))
+                loss_mask.append(budget is None or budget > 0)
+                if faults is not None and faults.arrived_of(cid):
+                    n_arrived += 1
+                if completed:
+                    self.edges[e].update(cl.q_n, cl.n_samples)  # Eq. 19
+                    up_bytes += self.comm.client_edge(up_f if late
+                                                      else up_q)  # upload
+                if late:
+                    late_models.append(p)
+                    late_counts.append(cl.n_samples)
+                elif completed:                       # on time
+                    if self.quant != "none":      # start + deq
+                        p, new_err = ef_roundtrip(
+                            p, self._err_rows(int(cid)), self.quant,
+                            start=edge_model)
+                        self._err_stack = tree_scatter(self._err_stack,
+                                                       int(cid), new_err)
+                    client_models.append(p)
+                    counts.append(cl.n_samples)
+                    mus.append(sh_score(cl.q_n, self.q_u))
             if r % fl.edge_agg_every == 0:
-                if self.aggregation == "sh":
+                if not client_models:
+                    agg = edge_model          # no reporter: keep the model
+                elif self.aggregation == "sh":
                     agg = aggregate_sh(client_models, counts, mus,
                                        fl.sh_a, fl.sh_b)        # Eq. 23/24
                 else:
                     agg = aggregate_fedavg(client_models, counts)
+                if self.aggregation == "staleness":
+                    agg = merge_late(agg, self._late_buf.pop(e, None),
+                                     self.fault)
+                    if late_models:
+                        self._late_buf[e] = late_delta(
+                            late_models, edge_model,
+                            late_shares(counts, late_counts))
                 if self._edge_models is None:
                     self._edge_models = {}
                 self._edge_models[e] = agg
-                down_bytes += self.comm.client_edge(down) * len(cids)
-        return round_losses, up_bytes, down_bytes
+                n_down = len(cids) if faults is None else n_arrived
+                down_bytes += self.comm.client_edge(down) * n_down
+        return round_losses, up_bytes, down_bytes, loss_mask
 
-    def _local_and_edge_vectorized(self, r, assignment, sparse_round, wire):
+    def _local_and_edge_vectorized(self, r, assignment, sparse_round, wire,
+                                   faults=None):
         """All the round's clients in one client-batched step a batch
         (:mod:`repro_torch.fl.engine`), the edges aggregated by one fused
-        (E, C) contraction, the losses synced once."""
+        (E, C) contraction, the losses synced once.  Under ``faults`` the
+        budgets truncate the (C, S) valid mask by a prefix, clients that
+        do not report get zero aggregation weight (the reporters'
+        renormalized), and late deltas come back through ``w_late``."""
         fl = self.fl
-        up, down = wire
+        up_q, up_f, down = wire
         order = [(e, cid) for e, cids in assignment.items() for cid in cids]
         clients = [self.clients[cid] for _, cid in order]
         # the clients' shuffles in edge-iteration order, as the
         # sequential loop draws them
         batches, valid = stack_round([cl.data for cl in clients],
                                      fl.local_epochs)
+        cid_of = np.asarray([cid for _, cid in order])
+        if faults is not None:
+            valid = faults.truncate(valid, cid_of)
         t0 = time.perf_counter()
         batches = {k: torch.as_tensor(v, device=self.device)
                    for k, v in batches.items()}
@@ -299,40 +388,68 @@ class FedPhD:
         edge_stack = stack_trees([edge_models.get(e, self.params)
                                   for e in range(fl.num_edges)])
         edge_idx = np.asarray([e for e, _ in order])
-        # W[e] = edge e's normalized Eq. 23/24 weights on its clients
-        w_mat = np.zeros((fl.num_edges, len(order)), np.float32)
-        for e, cids in assignment.items():
-            if not cids:
-                continue
-            counts = [self.clients[cid].n_samples for cid in cids]
-            mus = [sh_score(self.clients[cid].q_n, self.q_u) for cid in cids]
-            w = sh_weights(counts, mus, fl.sh_a, fl.sh_b) \
-                if self.aggregation == "sh" else fedavg_weights(counts)
-            w_mat[e, edge_idx == e] = normalize_weights(w)
+        reporting = np.asarray([faults is None or faults.reporting_of(cid)
+                                for cid in cid_of], bool)
+        completed = np.asarray([faults is None or faults.completed_of(cid)
+                                for cid in cid_of], bool)
+        late = np.asarray([faults is not None and faults.late_of(cid)
+                           for cid in cid_of], bool)
+        n = np.asarray([self.clients[cid].n_samples for cid in cid_of])
+
+        def weights(rep):
+            """An edge's Eq. 23/24 weights on its reporters ``rep``."""
+            if self.aggregation != "sh":
+                return fedavg_weights(n[rep])
+            return sh_weights(n[rep], [sh_score(self.clients[c].q_n,
+                                                self.q_u)
+                                       for c in cid_of[rep]],
+                              fl.sh_a, fl.sh_b)
+        w_mat, w_late = edge_weight_rows(edge_idx, fl.num_edges, n,
+                                         reporting, late, weights)
         engine = self._engine_sparse if sparse_round else self._engine_plain
-        idx = np.asarray([cid for _, cid in order])
         out = engine(edge_stack, edge_idx, batches, valid, draws, w_mat,
-                     opt_states=self._opt_rows(idx)
-                     if self.persistent_opt else None)
+                     opt_states=self._opt_rows(cid_of)
+                     if self.persistent_opt else None, w_late=w_late,
+                     err=self._err_rows(cid_of)
+                     if self.quant != "none" else None)
         self.round_seconds.append(time.perf_counter() - t0)
         if self.persistent_opt:
-            self._opt_stack = tree_scatter(self._opt_stack, idx, out["opt"])
+            # only completed clients keep their moments
+            scatter_rows(self._opt_stack, cid_of, out["opt"], completed)
+        if self.quant != "none":
+            # only on-time reporters sent a quantized payload
+            scatter_rows(self._err_stack, cid_of, out["err"], reporting)
 
         up_bytes, down_bytes = 0.0, 0.0
-        for e, cid in order:
-            cl = self.clients[cid]
-            self.edges[e].update(cl.q_n, cl.n_samples)          # Eq. 19
-            up_bytes += self.comm.client_edge(up)              # upload
+        for (e, cid), done, lt in zip(order, completed, late):
+            if done:
+                cl = self.clients[cid]
+                self.edges[e].update(cl.q_n, cl.n_samples)      # Eq. 19
+                up_bytes += self.comm.client_edge(up_f if lt
+                                                  else up_q)   # upload
         if r % fl.edge_agg_every == 0:
             if self._edge_models is None:
                 self._edge_models = {}
             for e, cids in assignment.items():
                 if not cids:
                     continue
-                self._edge_models[e] = tree_map(lambda leaf, _e=e: leaf[_e],
-                                                out["agg"])
-                down_bytes += self.comm.client_edge(down) * len(cids)
-        return list(out["losses"]), up_bytes, down_bytes
+                if w_mat[e].any():
+                    agg = tree_map(lambda leaf, _e=e: leaf[_e], out["agg"])
+                else:                         # no reporter: keep the model
+                    agg = edge_models.get(e, self.params)
+                if self.aggregation == "staleness":
+                    agg = merge_late(agg, self._late_buf.pop(e, None),
+                                     self.fault)
+                    if w_late is not None and w_late[e].any():
+                        self._late_buf[e] = tree_map(
+                            lambda leaf, _e=e: leaf[_e], out["late"])
+                self._edge_models[e] = agg
+                n_down = len(cids) if faults is None else sum(
+                    faults.arrived_of(cid) for cid in cids)
+                down_bytes += self.comm.client_edge(down) * n_down
+        loss_mask = [faults is None or faults.budget_of(cid) > 0
+                     for cid in cid_of]
+        return list(out["losses"]), up_bytes, down_bytes, loss_mask
 
     # -- one communication round (Alg. 1 lines 3-32) -------------------------
     def run_round(self, r: int) -> RoundRecord:
@@ -343,8 +460,17 @@ class FedPhD:
         r >= R_s) pruning; returns what ``_finish_round`` records."""
         fl = self.fl
         C = max(1, round(fl.participation * len(self.clients)))
-        sel_ids = self.np_rng.choice(len(self.clients), size=C,
-                                     replace=False)
+        if self._faults is not None:
+            # the churn first (its own stream), then the participants
+            # from the online clients only: with churn 0 the selection
+            # stream draws as without faults
+            pool = np.flatnonzero(self._faults.begin_round())
+            C = min(C, len(pool))
+            sel_ids = pool[self.np_rng.choice(len(pool), size=C,
+                                              replace=False)]
+        else:
+            sel_ids = self.np_rng.choice(len(self.clients), size=C,
+                                         replace=False)
         # lines 4-5: clients select edge servers
         assignment: Dict[int, List[int]] = {e: [] for e in
                                             range(fl.num_edges)}
@@ -360,22 +486,29 @@ class FedPhD:
         sparse_round = (self.prune and not self.pruned
                         and fl.prune_mode == "group_norm"
                         and r < fl.sparse_rounds)
+        faults = None
+        if self._faults is not None:
+            steps = [fl.local_epochs * self.clients[c].data.steps_per_epoch
+                     for c in sel_ids]
+            faults = self._faults.draw_round(
+                sel_ids, steps, self.aggregation == "staleness")
         wire = self._wire_bytes()
         local = self._local_and_edge_vectorized \
             if self._use_vectorized([self.clients[c] for c in sel_ids]) \
             else self._local_and_edge_sequential
-        round_losses, up_bytes, down_bytes = local(r, assignment,
-                                                   sparse_round, wire)
+        round_losses, up_bytes, down_bytes, loss_mask = local(
+            r, assignment, sparse_round, wire, faults)
 
         pruned_this_round = False
         # lines 23-31: cloud aggregation every r_g rounds
         if r % fl.cloud_agg_every == 0 and self._edge_models is not None:
             models, counts, mus = [], [], []
+            # the edges send fp32 (only the client uplink is quantized)
             for e, m in self._edge_models.items():
                 models.append(m)
                 counts.append(self.edges[e].n)
                 mus.append(self.edges[e].sh(self.q_u))          # Eq. 20
-                up_bytes += self.comm.edge_cloud(wire[0])       # upload
+                up_bytes += self.comm.edge_cloud(wire[1])       # upload
             if self.aggregation == "sh":
                 self.params = aggregate_sh(models, counts, mus,
                                            fl.sh_a, fl.sh_b)    # Eq. 21/22
@@ -389,8 +522,10 @@ class FedPhD:
                 self._rebuild_steps()
                 pruned_this_round = True
                 wire = self._wire_bytes()
+                # buffered late deltas have the old shapes
+                self._late_buf = {}
             # broadcast and refresh (lines 29-31)
-            down_bytes += self.comm.edge_cloud(wire[1]) * fl.num_edges
+            down_bytes += self.comm.edge_cloud(wire[2]) * fl.num_edges
             self._edge_models = {e: self.params
                                  for e in range(fl.num_edges)}
             for edge in self.edges:
@@ -401,20 +536,25 @@ class FedPhD:
                 "sel_ids": sel_ids, "pruned": pruned_this_round,
                 "params": self.params, "cfg": self.cfg,
                 "params_m": self._param_count_m(),
-                "edge_sh": [e.sh(self.q_u) for e in self.edges]}
+                "edge_sh": [e.sh(self.q_u) for e in self.edges],
+                "loss_mask": loss_mask,
+                "availability": faults.availability() if faults else None}
 
     def _finish_round(self, pend: Dict) -> RoundRecord:
-        losses = pend["losses"]
+        # the round's loss averages the clients that ran a step
+        losses = [x for x, ran in zip(pend["losses"], pend["loss_mask"])
+                  if ran]
         rec = RoundRecord(
             round=pend["round"],
-            loss=float(np.mean(losses)) if losses else float("nan"),
+            loss=float(np.mean(losses)) if losses else 0.0,
             comm_gb=pend["up_bytes"] / 1e9 + pend["down_bytes"] / 1e9,
             comm_up_gb=pend["up_bytes"] / 1e9,
             comm_down_gb=pend["down_bytes"] / 1e9,
             params_m=pend["params_m"],
             selected=[int(c) for c in pend["sel_ids"]],
             edge_sh=pend["edge_sh"],
-            pruned=pend["pruned"])
+            pruned=pend["pruned"],
+            availability=pend["availability"])
         # appended before the eval hook: the round ran and the streams
         # advanced, so a raising eval_fn loses the eval, not the round
         self.history.append(rec)
@@ -451,8 +591,11 @@ class FedPhD:
             {str(e): m for e, m in self._edge_models.items()},
             "edge_counts": np.stack([e.counts for e in self.edges]),
             "edge_n": np.asarray([e.n for e in self.edges], np.int64),
-            "late_buf": None,
-            "err_stack": None,
+            "late_buf": {str(e): t for e, t in self._late_buf.items()}
+            or None,
+            # the uplink's error-feedback rows: a resumed run is bitwise
+            # the unbroken one only with them
+            "err_stack": self._err_stack,
             "torch_rng": self.gen.get_state().numpy(),
         }
         meta = {
@@ -462,7 +605,7 @@ class FedPhD:
             "np_rng": self.np_rng.bit_generator.state,
             "client_rngs": [cl.data.rng_state() for cl in self.clients],
             "history": [rec.to_dict() for rec in self.history],
-            "fault": None,
+            "fault": self._faults.state() if self._faults else None,
             "torch_rng_device": self.gen.device.type,
         }
         return arrays, meta
@@ -492,9 +635,13 @@ class FedPhD:
             e.counts = np.asarray(arrays["edge_counts"][i],
                                   np.float64).copy()
             e.n = int(arrays["edge_n"][i])
+        self._late_buf = {int(e): params_from_jax(t, self.device)
+                          for e, t in (arrays.get("late_buf") or {}).items()}
         self.np_rng.bit_generator.state = meta["np_rng"]
         for cl, st in zip(self.clients, meta["client_rngs"]):
             cl.data.set_rng_state(st)
+        if self._faults is not None and meta.get("fault"):
+            self._faults.set_state(meta["fault"])
         if arrays.get("torch_rng") is not None:
             self.gen.set_state(torch.from_numpy(
                 np.asarray(arrays["torch_rng"], np.uint8)))
@@ -509,3 +656,8 @@ class FedPhD:
         if self.persistent_opt:
             self._opt_stack = adam_stack_from_tree(
                 arrays["opt_stack"], self._store, self.device)
+        if self.quant != "none" and arrays.get("err_stack") is not None:
+            # after _rebuild_steps, which zeroed them for the restored
+            # shapes
+            self._err_stack = store_tree(arrays["err_stack"], self._store,
+                                         self.device)

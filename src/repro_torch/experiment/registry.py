@@ -13,11 +13,12 @@ A factory returns an object of the
 :class:`repro_torch.experiment.trainer.Trainer` protocol.  The port's
 factories take the device the trainer runs on as a fifth argument.
 
-The built-ins are the hierarchical ``fedphd`` and ``fedphd-os`` and the
+The built-ins are the hierarchical ``fedphd`` and ``fedphd-os``, the
 flat baselines ``fedavg``, ``fedprox``, ``moon``, ``scaffold`` and
-``feddiffuse`` (:class:`repro_torch.fl.baselines.FlatTrainer`).  The
-reference's staleness variants are not ported yet; asking for one raises
-and names the ROADMAP item that brings it.
+``feddiffuse`` (:class:`repro_torch.fl.baselines.FlatTrainer`), and the
+staleness ablations ``fedphd-stale`` and ``fedavg-stale``: FedAvg over
+the on-time reporters with the late deltas merged a round later, which
+only differ from FedAvg under a ``spec.fault`` that makes stragglers.
 """
 from __future__ import annotations
 
@@ -29,11 +30,8 @@ from repro_torch.experiment.spec import TOPOLOGIES, ExperimentSpec
 
 TrainerFactory = Callable  # (spec, cfg, clients, eval_fn, device) -> Trainer
 
-# the reference's methods that wait for a later item
-UNPORTED = {
-    "fedavg-stale": "A.10 (faults and staleness aggregation)",
-    "fedphd-stale": "A.10 (faults and staleness aggregation)",
-}
+# the reference's methods that wait for a later item (name -> item)
+UNPORTED: Dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +87,8 @@ def make_trainer(spec: ExperimentSpec, cfg: ModelConfig, clients,
 # built-in methods
 # ---------------------------------------------------------------------------
 
-def _fedphd_factory(prune_mode: str = "") -> TrainerFactory:
+def _fedphd_factory(prune_mode: str = "",
+                    aggregation: str = "") -> TrainerFactory:
     def make(spec: ExperimentSpec, cfg, clients, eval_fn, device):
         from repro_torch.core.hfl import FedPhD
         fl = spec.fl
@@ -97,7 +96,8 @@ def _fedphd_factory(prune_mode: str = "") -> TrainerFactory:
             fl = dataclasses.replace(fl, prune_mode=prune_mode)
         return FedPhD(cfg, fl, clients, rng_seed=spec.seed,
                       selection=spec.selection,
-                      aggregation=spec.aggregation, prune=spec.prune,
+                      aggregation=aggregation or spec.aggregation,
+                      prune=spec.prune,
                       lr=spec.lr, engine=spec.engine,
                       persistent_opt=spec.persistent_opt,
                       state_store=spec.state_store, mesh=spec.mesh,
@@ -110,9 +110,12 @@ def _fedphd_factory(prune_mode: str = "") -> TrainerFactory:
 register_method("fedphd", "hierarchical", _fedphd_factory())
 # FedPhD-OS: one-shot L2 pruning at r = 0 instead of sparse-train rounds
 register_method("fedphd-os", "hierarchical", _fedphd_factory("oneshot_l2"))
+# the staleness ablations (repro_torch.fl.faults)
+register_method("fedphd-stale", "hierarchical",
+                _fedphd_factory(aggregation="staleness"))
 
 
-def _flat_factory(method: str) -> TrainerFactory:
+def _flat_factory(method: str, aggregation: str = "fedavg") -> TrainerFactory:
     def make(spec: ExperimentSpec, cfg, clients, eval_fn, device):
         from repro_torch.fl.baselines import FlatTrainer
         return FlatTrainer(method, cfg, spec.fl, clients, lr=spec.lr,
@@ -120,9 +123,13 @@ def _flat_factory(method: str) -> TrainerFactory:
                            persistent_opt=spec.persistent_opt,
                            state_store=spec.state_store, mesh=spec.mesh,
                            eval_fn=eval_fn, eval_every=spec.eval_every,
-                           fault=spec.fault, quant=spec.comm.quant,
-                           device=device)
+                           aggregation=aggregation, fault=spec.fault,
+                           quant=spec.comm.quant, device=device)
     return make
+
+
+register_method("fedavg-stale", "flat",
+                _flat_factory("fedavg", aggregation="staleness"))
 
 
 # the paper's Table II baselines (repro_torch.fl.baselines.FLAT_METHODS)

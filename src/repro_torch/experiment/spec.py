@@ -8,12 +8,12 @@ JSON-round-trippable.  Its fields and defaults are the reference's, so
 a ``spec.json`` written by either package loads in the other and is
 written back key for key.
 
-The reference keeps three of its nested specs in modules that import
-JAX (``fl/faults.py``, ``fl/compress.py``) or the obs layer; the port
-keeps its own copies here, with the same fields, validation and
-``from_dict``.  The trainers refuse what they do not implement yet: an
-enabled ``fault`` or a ``comm.quant`` other than "none" (ROADMAP A.10),
-enabled ``obs`` (A.11), a ``mesh`` (A.13).
+``FaultSpec`` and ``CommSpec`` are defined where the reference defines
+them (:mod:`repro_torch.fl.faults`, :mod:`repro_torch.fl.compress`) and
+re-exported here; ``ObsSpec`` is the port's copy of the reference's
+(``repro/obs/spec.py``), whose module belongs to the obs layer.  The
+trainers refuse what they do not implement yet: enabled ``obs``
+(ROADMAP A.11), a ``mesh`` (A.13).
 """
 from __future__ import annotations
 
@@ -23,9 +23,12 @@ from typing import Optional
 
 from repro_torch.configs.base import FLConfig, fl_from_dict
 from repro_torch.experiment.resolve import resolve_obs
-from repro_torch.fl.compress import QUANTS
+from repro_torch.fl.compress import CommSpec
+from repro_torch.fl.faults import FaultSpec
 
 TOPOLOGIES = ("hierarchical", "flat")
+__all__ = ["CommSpec", "DataSpec", "ExperimentSpec", "FaultSpec", "ObsSpec",
+           "TOPOLOGIES"]
 
 
 class _Spec:
@@ -42,53 +45,6 @@ class _Spec:
     def from_dict(cls, d: dict):
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
-
-
-@dataclasses.dataclass(frozen=True)
-class FaultSpec(_Spec):
-    """The reference's fault model (``repro/fl/faults.py:FaultSpec``),
-    all probabilities per round; see that class for each field.  The
-    port implements only the disabled spec."""
-    arrival: float = 1.0
-    dropout: float = 0.0
-    straggler_frac: float = 0.0
-    slowdown: float = 2.0
-    deadline: float = 1.0
-    churn: float = 0.0
-    staleness: float = 0.5
-    seed: int = 0
-
-    def __post_init__(self):
-        for name in ("arrival", "dropout", "straggler_frac", "churn",
-                     "staleness"):
-            v = getattr(self, name)
-            if not 0.0 <= v <= 1.0:
-                raise ValueError(f"fault.{name}={v} not in [0, 1]")
-        if self.slowdown < 1.0:
-            raise ValueError(f"fault.slowdown={self.slowdown} < 1")
-        if not 0.0 < self.deadline <= 1.0:
-            raise ValueError(f"fault.deadline={self.deadline} not in (0, 1]")
-
-    @property
-    def enabled(self) -> bool:
-        """True iff any fault can fire."""
-        return (self.arrival < 1.0 or self.dropout > 0.0
-                or self.churn > 0.0 or self.deadline < 1.0
-                or (self.straggler_frac > 0.0 and self.slowdown > 1.0))
-
-
-@dataclasses.dataclass(frozen=True)
-class CommSpec(_Spec):
-    """The uplink's compression (``repro/fl/compress.py:CommSpec``)."""
-    quant: str = "none"          # none | int8 | fp8
-
-    def __post_init__(self):
-        if self.quant not in QUANTS:
-            raise ValueError(f"comm.quant={self.quant!r} not in {QUANTS}")
-
-    @property
-    def enabled(self) -> bool:
-        return self.quant != "none"
 
 
 @dataclasses.dataclass(frozen=True)

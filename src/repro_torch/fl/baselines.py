@@ -32,9 +32,15 @@ feature noise) comes from one ``torch.Generator`` seeded by
 ``rng_seed``, and both engines draw it in the same order.  ``state()``
 and ``restore()`` use the reference's keys, plus the generator's state.
 
-Not ported yet, and refused: fault injection and the staleness
-aggregation, quantized uplinks (ROADMAP A.10), tracing (A.11), meshes
-(A.13).
+Faults (``fault=``) and the quantized uplink (``quant=``) act as in
+:mod:`repro_torch.core.hfl`: budgets truncate local training, only
+on-time reporters enter the aggregate and update their error-feedback
+rows, only completed clients update their client-local state, and
+``aggregation="staleness"`` (FedAvg only) merges late deltas a round
+later.  SCAFFOLD's variates and late deltas ship in fp32; MOON's and
+FedDiffuse's client-local state is never quantized.
+
+Not ported yet, and refused: tracing (ROADMAP A.11), meshes (A.13).
 """
 from __future__ import annotations
 
@@ -49,8 +55,8 @@ import torch
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core.aggregation import (aggregate_fedavg, fedavg_weights,
-                                          normalize_weights, uniform_weights,
-                                          weighted_average)
+                                          uniform_weights, weighted_average,
+                                          weighted_average_stacked)
 from repro_torch.core.hfl import prng_key
 from repro_torch.data.pipeline import stack_round
 from repro_torch.device import resolve_device
@@ -59,7 +65,11 @@ from repro_torch.fl import engine as eng
 from repro_torch.fl.client import (Client, make_local_step, run_local,
                                    scaffold_update)
 from repro_torch.fl.comm import CommModel
-from repro_torch.fl.compress import QUANTS, downlink_bytes, uplink_bytes
+from repro_torch.fl.compress import (QUANTS, downlink_bytes, ef_roundtrip,
+                                     uplink_bytes)
+from repro_torch.fl.faults import (FaultSpec, edge_weight_rows, late_delta,
+                                   late_shares, make_fault_model,
+                                   merge_late)
 from repro_torch.fl.record import RoundRecord, RunResult, evals_of
 from repro_torch.models import model
 from repro_torch.optim import adam_init, ema_init, ema_update
@@ -134,10 +144,10 @@ class FlatTrainer:
     raises on ragged clients.  persistent_opt: carry each client's Adam
     moments across rounds (off by default: the paper's baselines restart
     Adam every round).  state_store: where the (N, ...) method state
-    lives, "device", "host" or "auto".  eval_fn/eval_every: as FedPhD's.
-    mesh, fault, quant, tracer and ``aggregation="staleness"``: the
-    reference's; anything but their defaults raises NotImplementedError
-    (ROADMAP A.13, A.10, A.11).
+    lives, "device", "host" or "auto".  eval_fn/eval_every, fault and
+    quant: as FedPhD's.  aggregation: "fedavg", or "staleness" for
+    FedAvg.  mesh and tracer: the reference's; anything but None raises
+    NotImplementedError (ROADMAP A.13, A.11).
     """
 
     def __init__(self, method: str, cfg: ModelConfig, fl: FLConfig,
@@ -146,7 +156,8 @@ class FlatTrainer:
                  persistent_opt: bool = False, state_store: str = "auto",
                  mesh=None, eval_fn: Optional[Callable] = None,
                  eval_every: int = 0,
-                 aggregation: str = "fedavg", fault=None,
+                 aggregation: str = "fedavg",
+                 fault: Optional[FaultSpec] = None,
                  quant: str = "none", tracer=None, device="cuda"):
         if method not in FLAT_METHODS:
             raise ValueError(f"method {method!r} not in {FLAT_METHODS}")
@@ -155,16 +166,9 @@ class FlatTrainer:
                              f"{QUANTS}")
         if aggregation not in AGGREGATIONS:
             raise ValueError(f"unknown flat aggregation {aggregation!r}")
-        if aggregation == "staleness":
-            raise NotImplementedError("FlatTrainer(aggregation='staleness')"
-                                      ": the staleness aggregation is "
-                                      "ROADMAP A.10")
-        if quant != "none":
-            raise NotImplementedError(f"FlatTrainer(quant={quant!r}): the "
-                                      f"quantized uplink is ROADMAP A.10")
-        if fault is not None and fault.enabled:
-            raise NotImplementedError("FlatTrainer(fault=...): fault "
-                                      "injection is ROADMAP A.10")
+        if aggregation == "staleness" and method != "fedavg":
+            raise ValueError("staleness aggregation is a FedAvg variant "
+                             f"(got method={method!r})")
         if mesh is not None:
             raise NotImplementedError("FlatTrainer(mesh=...): the "
                                       "mesh-sharded client axis is "
@@ -173,7 +177,10 @@ class FlatTrainer:
             raise NotImplementedError("FlatTrainer(tracer=...): tracing is "
                                       "ROADMAP A.11")
         self.method = method
+        # "staleness": FedAvg over the on-time reporters and the late
+        # deltas merged a round later; with no stragglers, FedAvg
         self.aggregation = aggregation
+        self.quant = quant
         self.device = resolve_device(device)
         self.cfg = cfg = cfg.replace(
             precision=resolve_precision(cfg.precision))
@@ -186,6 +193,9 @@ class FlatTrainer:
         self.eval_fn = eval_fn
         self.eval_every = eval_every
         self.rng_seed = rng_seed
+        self.fault = fault if (fault is not None and fault.enabled) else None
+        self._faults = make_fault_model(self.fault, len(clients), rng_seed)
+        self._late_buf = None        # one edge, one buffered late delta
         self.np_rng = np.random.default_rng(rng_seed)
         self.gen = torch.Generator(self.device)
         self.gen.manual_seed(rng_seed)
@@ -218,10 +228,15 @@ class FlatTrainer:
         self._local_stack = eng.stacked_zeros(
             _split_shared(self.params, cfg)[1], n, host=host) \
             if method == "feddiffuse" else None
+        # the quantized uplink's per-client fp32 error-feedback rows
+        self._err_stack = eng.stacked_zeros(
+            self.params, n, dtype=torch.float32, host=host) \
+            if quant != "none" else None
         self._seen = np.zeros(n, bool)
         self.history: List[RoundRecord] = []
         self._round_engine = eng.make_round_engine(
-            cfg, fl, method=method, lr=lr, stored=self._stored_copies())
+            cfg, fl, method=method, lr=lr, stored=self._stored_copies(),
+            quant=quant)
 
     def _stored_copies(self) -> int:
         """fp32 model copies this trainer keeps on the card across
@@ -230,8 +245,9 @@ class FlatTrainer:
         n = len(self.clients)
         rows = 0 if self._store == "host" else n * (
             (self.method in ("moon", "scaffold", "feddiffuse"))
-            + 2 * self.persistent_opt)
-        return rows + (self.method == "scaffold")
+            + 2 * self.persistent_opt + (self.quant != "none"))
+        return rows + (self.method == "scaffold") \
+            + (self.aggregation == "staleness")
 
     # -- engine routing and state rows ---------------------------------------
     def _use_vectorized(self, round_clients) -> bool:
@@ -246,13 +262,21 @@ class FlatTrainer:
                               self.device)
 
     # -- the sequential engine ----------------------------------------------
-    def _round_sequential(self, sel):
+    def _round_sequential(self, sel, faults=None):
+        """One client after another.  Under ``faults`` a client runs its
+        budget of steps, only on-time reporters enter the FedAvg
+        aggregate, only completed clients update their local state, and
+        late clients feed the staleness buffer."""
         method, fl, cfg, params = self.method, self.fl, self.cfg, self.params
         shared_g, local_g = _split_shared(params, cfg)
         client_models, counts, losses, c_deltas = [], [], [], []
+        late_models, late_counts = [], []
         for cid in sel:
             cid = int(cid)
             cl = self.clients[cid]
+            budget = faults.budget_of(cid) if faults else None
+            completed = faults is None or faults.completed_of(cid)
+            reporting = faults is None or faults.reporting_of(cid)
             start = params
             if method == "feddiffuse" and self._seen[cid]:
                 start = _merge(shared_g, self._rows(self._local_stack, cid),
@@ -271,32 +295,57 @@ class FlatTrainer:
             new_p, opt_out, loss = run_local(
                 self.step_fn, start, cl, epochs=fl.local_epochs,
                 generator=self.gen, ctx=ctx or None, opt_state=opt_in,
-                step_seconds=self.step_seconds)
+                max_steps=budget, step_seconds=self.step_seconds)
             losses.append(loss)
-            if self.persistent_opt:
+            if self.persistent_opt and completed:
                 eng.tree_scatter(self._opt_stack, cid, opt_out)
-            if method == "moon":
+            if method == "moon" and completed:
                 eng.tree_scatter(self._prev_stack, cid, new_p)
                 self._seen[cid] = True
-            if method == "feddiffuse":
+            if method == "feddiffuse" and completed:
                 eng.tree_scatter(self._local_stack, cid,
                                  _split_shared(new_p, cfg)[1])
                 self._seen[cid] = True
-            counts.append(cl.n_samples)
-            client_models.append(_split_shared(new_p, cfg)[0]
-                                 if method == "feddiffuse" else new_p)
-            if method == "scaffold":
-                # c_i+ = c_i - c + (x - y_i) / (K lr), K the client's steps
-                steps = fl.local_epochs * cl.data.steps_per_epoch
+            if reporting:
+                counts.append(cl.n_samples)
+                up_p = new_p
+                if self.quant != "none":
+                    # the server decodes start + deq; the client-local
+                    # state above keeps the true new_p.  The delta's base
+                    # is the client's own start (FedDiffuse: with its
+                    # decoder rows), as the engine's
+                    up_p, new_err = ef_roundtrip(
+                        new_p, self._rows(self._err_stack, cid), self.quant,
+                        start=start)
+                    eng.tree_scatter(self._err_stack, cid, new_err)
+                client_models.append(_split_shared(up_p, cfg)[0]
+                                     if method == "feddiffuse" else up_p)
+            elif faults is not None and faults.late_of(cid):
+                late_models.append(new_p)
+                late_counts.append(cl.n_samples)
+            if method == "scaffold" and completed:
+                # c_i+ = c_i - c + (x - y_i) / (K lr), K the client's
+                # executed steps (at least 1: a 0-step budget's zero
+                # delta must not meet an infinite scale)
+                steps = budget if faults else \
+                    fl.local_epochs * cl.data.steps_per_epoch
                 ci = ctx["c_local"]
                 new_ci = scaffold_update(ci, self.c_global, start, new_p,
                                          1.0 / (max(steps, 1) * self.lr))
                 c_deltas.append(tree_map(lambda a, b: a - b, new_ci, ci))
                 eng.tree_scatter(self._c_local_stack, cid, new_ci)
-        agg = aggregate_fedavg(client_models, counts)
+        # no reporter: the server keeps its model
+        agg = aggregate_fedavg(client_models, counts) if client_models \
+            else (shared_g if method == "feddiffuse" else params)
+        if self.aggregation == "staleness":
+            buf, self._late_buf = self._late_buf, None
+            agg = merge_late(agg, buf, self.fault)
+            if late_models:
+                self._late_buf = late_delta(late_models, params,
+                                            late_shares(counts, late_counts))
         self.params = _merge(agg, local_g, params) \
             if method == "feddiffuse" else agg
-        if method == "scaffold":
+        if method == "scaffold" and c_deltas:
             mean_dc = weighted_average(c_deltas,
                                        uniform_weights(len(c_deltas)))
             frac = len(c_deltas) / len(self.clients)
@@ -305,13 +354,23 @@ class FlatTrainer:
         return losses
 
     # -- the vectorized engine ----------------------------------------------
-    def _round_vectorized(self, sel):
+    def _round_vectorized(self, sel, faults=None):
+        """The E = 1 engine round.  Under ``faults`` the budgets truncate
+        the (C, S) valid mask by a prefix, clients that do not report get
+        zero weight (the reporters' renormalized), and late deltas come
+        back through ``w_late``."""
         method, fl, cfg, params = self.method, self.fl, self.cfg, self.params
         sel_arr = np.asarray(sel)
         sel_clients = [self.clients[int(c)] for c in sel]
-        counts = [cl.n_samples for cl in sel_clients]
+        counts = np.asarray([cl.n_samples for cl in sel_clients])
+        # the schedule's masks are in selection order
+        everyone = np.ones(len(sel), bool)
+        rep = everyone if faults is None else faults.reporting
+        comp = everyone if faults is None else faults.completed
         batches, valid = stack_round([cl.data for cl in sel_clients],
                                      fl.local_epochs)
+        if faults is not None:
+            valid = faults.truncate(valid, sel)
         t0 = time.perf_counter()
         batches = {k: torch.as_tensor(v, device=self.device)
                    for k, v in batches.items()}
@@ -321,8 +380,10 @@ class FlatTrainer:
         # the flat round is the E = 1 case of the edge engine; the one
         # edge model is a view of the global model
         server = tree_map(lambda leaf: leaf[None], params)
-        w_row = normalize_weights(fedavg_weights(counts)).astype(
-            np.float32)[None]
+        late = np.zeros(len(sel), bool) if faults is None else faults.late
+        w_row, w_late = edge_weight_rows(
+            np.zeros(len(sel), np.int64), 1, counts, rep, late,
+            lambda mask: fedavg_weights(counts[mask]))
         shared_g, local_g = _split_shared(params, cfg)
         seen = self._seen[sel_arr]
         ctx = None
@@ -335,8 +396,9 @@ class FlatTrainer:
             ctx = {"local_params": _rows_or_default(
                 self._rows(self._local_stack, sel_arr), local_g, seen)}
         if method == "scaffold":
-            steps = np.asarray([fl.local_epochs * cl.data.steps_per_epoch
-                                for cl in sel_clients], np.float64)
+            steps = faults.budget.astype(np.float64) if faults is not None \
+                else np.asarray([fl.local_epochs * cl.data.steps_per_epoch
+                                 for cl in sel_clients], np.float64)
             scale = 1.0 / (np.maximum(steps, 1) * self.lr)
             ctx = {"c_local": self._rows(self._c_local_stack, sel_arr),
                    "c_global": self.c_global,
@@ -346,45 +408,80 @@ class FlatTrainer:
             server, np.zeros(len(sel), np.int64), batches, valid, draws,
             w_row, ctx=ctx,
             opt_states=self._rows(self._opt_stack, sel_arr)
-            if self.persistent_opt else None)
+            if self.persistent_opt else None, w_late=w_late,
+            err=self._rows(self._err_stack, sel_arr)
+            if self.quant != "none" else None)
+        # under faults SCAFFOLD's mean change is taken over the completed
+        # clients, which needs their old rows
+        c_local = ctx["c_local"] if method == "scaffold" \
+            and faults is not None else None
         del ctx
         self.round_seconds.append(time.perf_counter() - t0)
-        agg = tree_map(lambda leaf: leaf[0], out["agg"])
+        # a zero weight row makes the aggregate zeros: keep the model
+        agg = tree_map(lambda leaf: leaf[0], out["agg"]) if rep.any() \
+            else (shared_g if method == "feddiffuse" else params)
+        if self.aggregation == "staleness":
+            buf, self._late_buf = self._late_buf, None
+            agg = merge_late(agg, buf, self.fault)
+            if w_late is not None:
+                self._late_buf = tree_map(lambda leaf: leaf[0], out["late"])
+
+        if self.quant != "none":
+            # only on-time reporters sent a quantized payload
+            eng.scatter_rows(self._err_stack, sel_arr, out["err"], rep)
         if self.persistent_opt:
-            eng.tree_scatter(self._opt_stack, sel_arr, out["opt"])
+            eng.scatter_rows(self._opt_stack, sel_arr, out["opt"], comp)
         if method == "moon":
-            eng.tree_scatter(self._prev_stack, sel_arr, out["trained"])
-            self._seen[sel_arr] = True
+            eng.scatter_rows(self._prev_stack, sel_arr, out["trained"], comp)
+            self._seen[sel_arr[comp]] = True
         if method == "feddiffuse":
-            eng.tree_scatter(self._local_stack, sel_arr,
-                             {k: out["trained"][k] for k in local_g})
-            self._seen[sel_arr] = True
+            eng.scatter_rows(self._local_stack, sel_arr,
+                             {k: out["trained"][k] for k in local_g}, comp)
+            self._seen[sel_arr[comp]] = True
             # only the shared half of the aggregate is used; the server
             # keeps its own decoder (never communicated)
             self.params = _merge({k: agg[k] for k in shared_g}, local_g,
                                  params)
         else:
             self.params = agg
-        if method == "scaffold":
-            eng.tree_scatter(self._c_local_stack, sel_arr, out["c_new"])
-            frac = len(sel) / len(self.clients)
+        if method == "scaffold" and comp.any():
+            eng.scatter_rows(self._c_local_stack, sel_arr, out["c_new"],
+                             comp)
+            if faults is None:
+                mean_dc = out["dc_mean"]
+            else:
+                # the engine's mean is over every client: take it over
+                # the completed ones
+                dc = tree_map(lambda a, b: a - b, out["c_new"], c_local)
+                mean_dc = weighted_average_stacked(
+                    dc, comp.astype(np.float64) / comp.sum())
+            frac = int(comp.sum()) / len(self.clients)
             self.c_global = tree_map(lambda c, d: c + frac * d,
-                                     self.c_global, out["dc_mean"])
+                                     self.c_global, mean_dc)
         return list(out["losses"])
 
     # -- one round -----------------------------------------------------------
+    def late_buffers(self) -> Dict[int, dict]:
+        """The buffered late-delta sum (staleness) as FedPhD's one edge
+        would hold it: ``{0: tree}``, or empty."""
+        return {} if self._late_buf is None else {0: self._late_buf}
+
     def _wire_bytes(self):
-        """``(up, down)`` bytes of one transfer: only the part a method
-        sends counts (FedDiffuse's shared half), and SCAFFOLD adds its
-        fp32 control variates both ways."""
+        """``(up, up_full, down)`` bytes of one transfer: the on-time
+        uplink (quantized: payload and scales), the fp32 uplink of late
+        clients, and the download.  Only the part a method sends counts
+        (FedDiffuse's shared half), and SCAFFOLD adds its fp32 control
+        variates both ways, never quantized."""
         comm_tree = _split_shared(self.params, self.cfg)[0] \
             if self.method == "feddiffuse" else self.params
-        up = uplink_bytes(comm_tree)
+        up_q = uplink_bytes(comm_tree, self.quant)
+        up_f = uplink_bytes(comm_tree, "none")
         down = downlink_bytes(comm_tree, self.cfg.precision)
         if self.method == "scaffold":
-            up += uplink_bytes(self.params)
+            up_q += uplink_bytes(self.params, "none")
+            up_f += uplink_bytes(self.params, "none")
             down += downlink_bytes(self.params, "fp32")
-        return up, down
+        return up_q, up_f, down
 
     def run_round(self, r: int) -> RoundRecord:
         return self._finish_round(self._start_round(r))
@@ -392,22 +489,53 @@ class FlatTrainer:
     def _start_round(self, r: int) -> Dict:
         """Sampling, local training, aggregation and the method's state;
         returns what ``_finish_round`` records."""
-        C = max(1, round(self.fl.participation * len(self.clients)))
-        sel = self.np_rng.choice(len(self.clients), size=C, replace=False)
-        if self._use_vectorized([self.clients[int(c)] for c in sel]):
-            losses = self._round_vectorized(sel)
+        fl = self.fl
+        C = max(1, round(fl.participation * len(self.clients)))
+        faults = None
+        if self._faults is not None:
+            # the churn first (its own stream), then the participants
+            # from the online clients only
+            pool = np.flatnonzero(self._faults.begin_round())
+            C = min(C, len(pool))
+            sel = pool[self.np_rng.choice(len(pool), size=C, replace=False)]
+            steps = [fl.local_epochs
+                     * self.clients[int(c)].data.steps_per_epoch for c in sel]
+            faults = self._faults.draw_round(
+                sel, steps, self.aggregation == "staleness")
         else:
-            losses = self._round_sequential(sel)
-        up, down = self._wire_bytes()
+            sel = self.np_rng.choice(len(self.clients), size=C,
+                                     replace=False)
+        if self._use_vectorized([self.clients[int(c)] for c in sel]):
+            losses = self._round_vectorized(sel, faults)
+        else:
+            losses = self._round_sequential(sel, faults)
+        up_q, up_f, down = self._wire_bytes()
+        if faults is None:
+            up_bytes = len(sel) * self.comm.edge_cloud(up_q)
+            down_bytes = len(sel) * self.comm.edge_cloud(down)
+        else:
+            # downloads to every arrived client, uploads from the ones
+            # that finished: the quantized payload from on-time
+            # reporters, fp32 from late ones
+            n_rep = int(faults.reporting.sum())
+            n_late = int(faults.completed.sum()) - n_rep
+            up_bytes = n_rep * self.comm.edge_cloud(up_q) \
+                + n_late * self.comm.edge_cloud(up_f)
+            down_bytes = int(faults.arrived.sum()) \
+                * self.comm.edge_cloud(down)
         return {"round": r, "losses": losses, "sel_ids": sel,
-                "up_bytes": len(sel) * self.comm.edge_cloud(up),
-                "down_bytes": len(sel) * self.comm.edge_cloud(down),
+                "up_bytes": up_bytes, "down_bytes": down_bytes,
                 "params_m": sum(x.numel()
                                 for x in tree_leaves(self.params)) / 1e6,
-                "params": self.params, "cfg": self.cfg}
+                "params": self.params, "cfg": self.cfg,
+                "loss_mask": [faults is None or faults.budget_of(int(c)) > 0
+                              for c in sel],
+                "availability": faults.availability() if faults else None}
 
     def _finish_round(self, pend: Dict) -> RoundRecord:
-        losses = pend["losses"]
+        # the round's loss averages the clients that ran a step
+        losses = [x for x, ran in zip(pend["losses"], pend["loss_mask"])
+                  if ran]
         rec = RoundRecord(
             round=pend["round"],
             loss=float(np.mean(losses)) if losses else 0.0,
@@ -415,7 +543,8 @@ class FlatTrainer:
             comm_up_gb=pend["up_bytes"] / 1e9,
             comm_down_gb=pend["down_bytes"] / 1e9,
             params_m=pend["params_m"],
-            selected=[int(c) for c in pend["sel_ids"]])
+            selected=[int(c) for c in pend["sel_ids"]],
+            availability=pend["availability"])
         # appended before the eval hook: the round ran and the streams
         # advanced, so a raising eval_fn loses the eval, not the round
         self.history.append(rec)
@@ -451,8 +580,8 @@ class FlatTrainer:
             "prev_stack": self._prev_stack,
             "local_stack": self._local_stack,
             "seen": self._seen,
-            "late_buf": None,
-            "err_stack": None,
+            "late_buf": self._late_buf,
+            "err_stack": self._err_stack,
             "torch_rng": self.gen.get_state().numpy(),
         }
         meta = {
@@ -461,7 +590,7 @@ class FlatTrainer:
             "np_rng": self.np_rng.bit_generator.state,
             "client_rngs": [cl.data.rng_state() for cl in self.clients],
             "history": [rec.to_dict() for rec in self.history],
-            "fault": None,
+            "fault": self._faults.state() if self._faults else None,
             "torch_rng_device": self.gen.device.type,
         }
         return arrays, meta
@@ -490,12 +619,18 @@ class FlatTrainer:
         self._prev_stack = to_store(arrays.get("prev_stack"))
         self._local_stack = to_store(arrays.get("local_stack"))
         self._seen = np.asarray(arrays["seen"], bool).copy()
+        self._late_buf = None if arrays.get("late_buf") is None else \
+            params_from_jax(arrays["late_buf"], self.device)
+        if self.quant != "none" and arrays.get("err_stack") is not None:
+            self._err_stack = to_store(arrays["err_stack"])
         if self.persistent_opt:
             self._opt_stack = eng.adam_stack_from_tree(
                 arrays["opt_stack"], self._store, self.device)
         self.np_rng.bit_generator.state = meta["np_rng"]
         for cl, st in zip(self.clients, meta["client_rngs"]):
             cl.data.set_rng_state(st)
+        if self._faults is not None and meta.get("fault"):
+            self._faults.set_state(meta["fault"])
         if arrays.get("torch_rng") is not None:
             self.gen.set_state(torch.from_numpy(
                 np.asarray(arrays["torch_rng"], np.uint8)))

@@ -58,6 +58,7 @@ from repro_torch.core.aggregation import (combine_leaf,
                                           weighted_average_stacked)
 from repro_torch.fl.client import (make_loss_fn, scaffold_correction,
                                    scaffold_update)
+from repro_torch.fl.compress import ef_roundtrip_stacked
 from repro_torch.optim import AdamState, adam_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -130,6 +131,16 @@ def tree_scatter(stacked, idx, rows):
             leaf[i] = torch.as_tensor(r).to(leaf.device)
         return leaf
     return tree_map(put, stacked, rows)
+
+
+def scatter_rows(stacked, ids, rows, mask):
+    """Write the rows of the clients of ``mask`` into ``stacked`` at their
+    ids: ``rows`` and ``ids`` hold one entry a client of the round, in
+    the engine's order.  In place (:func:`tree_scatter`)."""
+    if mask.any():
+        pos = np.flatnonzero(mask)
+        tree_scatter(stacked, np.asarray(ids)[pos],
+                     rows if mask.all() else tree_gather(rows, pos))
 
 
 STORES = ("auto", "device", "host")
@@ -261,7 +272,8 @@ def make_train_one(loss_fn, *, method: str = "fedphd", lr: float = 2e-4):
     gradients are corrected per client before Adam.  A step where any client is padded
     keeps that client's params, moments and step as they were
     (``torch.where`` on the client axis): padding is a bitwise no-op.
-    A step with no padding selects nothing.  (The reference's ``masked``
+    A step with no padding selects nothing, and a step where no client
+    has a real batch is not run.  (The reference's ``masked``
     flag picks one of two static XLA programs; this loop reads the mask
     at every step, so it needs no flag.)
 
@@ -282,6 +294,9 @@ def make_train_one(loss_fn, *, method: str = "fedphd", lr: float = 2e-4):
         at = lambda d, s: d[:, s].reshape((-1,) + tuple(d.shape[3:]))
         step_losses = []
         for s in range(S):
+            if not valid[:, s].any():        # every client's budget spent
+                step_losses.append(torch.zeros((C,), device=device))
+                continue
             batch = {k: at(v, s) for k, v in batches.items()}
             kw = {} if ctx is None else {"ctx": ctx}
             if len(draws) > 2:
@@ -363,6 +378,9 @@ _DTYPE_BYTES = {"fp32": 4, "bf16": 2}
 METHOD_COPIES = {"fedphd": (0, 0, 1.0), "fedavg": (0, 0, 1.0),
                  "fedprox": (0, 1, 1.0), "moon": (1, 0, 2.2),
                  "scaffold": (2, 1, 1.0), "feddiffuse": (1, 0, 1.0)}
+# the methods whose trained models outlive the round (MOON's previous
+# models, FedDiffuse's decoders): the engine returns them as "trained"
+KEEPS_TRAINED = ("moon", "feddiffuse")
 
 
 def unet_elems(cfg: ModelConfig) -> Tuple[int, int]:
@@ -436,7 +454,8 @@ def unet_elems(cfg: ModelConfig) -> Tuple[int, int]:
 
 def round_bytes(cfg: ModelConfig, batch_shape, k: int, *, edges: int = 1,
                 opt_rows: bool = False, method: str = "fedphd",
-                stored: int = 0) -> int:
+                stored: int = 0, quant: bool = False,
+                late: bool = False) -> int:
     """The estimated peak bytes of a round whose images stack as
     ``batch_shape`` (C, S, B, H, W, ch), trained in chunks of ``k``
     clients: every client's fp32 model in the trained stack, the E edge
@@ -446,14 +465,22 @@ def round_bytes(cfg: ModelConfig, batch_shape, k: int, *, edges: int = 1,
     ``stored`` fp32 model copies the trainer keeps across rounds (its
     (N, ...) method state on the card); the chunk's k clients' state and
     activations (module constants); and the method's own copies
-    (``METHOD_COPIES``)."""
+    (``METHOD_COPIES``).  ``quant`` adds the C clients' error-feedback
+    rows in and their new residuals out (the reconstructed models take
+    the trained stack's place, beside it for MOON and FedDiffuse, which
+    keep it); ``late`` the E edges' late-delta sums; either the chunk's
+    start rows its deltas are taken from."""
     C, B = int(batch_shape[0]), int(batch_shape[2])
     params, acts = unet_elems(cfg)
     p_bytes = 4 * params
     per_round, per_chunk, act_mult = METHOD_COPIES[method]
     data = (3 if method == "moon" else 2) * 4 * int(np.prod(batch_shape))
+    if quant:
+        per_round += 2 + (method in KEEPS_TRAINED)
+    if quant or late:
+        per_chunk += 1          # the chunk's start rows, gathered
     models = 2 * edges + 1 + C + (4 * C if opt_rows else 0) \
-        + per_round * C + stored
+        + per_round * C + stored + (edges if late else 0)
     fixed = models * p_bytes + data
     dtype = _DTYPE_BYTES[cfg.precision or "fp32"]
     per_client = (STATE_COPIES + per_chunk) * p_bytes \
@@ -463,7 +490,8 @@ def round_bytes(cfg: ModelConfig, batch_shape, k: int, *, edges: int = 1,
 
 def client_chunk(cfg: ModelConfig, batch_shape, total_memory: int, *,
                  edges: int = 1, opt_rows: bool = False,
-                 method: str = "fedphd", stored: int = 0) -> int:
+                 method: str = "fedphd", stored: int = 0,
+                 quant: bool = False, late: bool = False) -> int:
     """The chunk size k for a round whose images stack as ``batch_shape``
     (C, S, B, H, W, ch) on a card of ``total_memory`` bytes: the fewest
     chunks whose :func:`round_bytes` fits USABLE_SHARE of the card, cut
@@ -474,7 +502,8 @@ def client_chunk(cfg: ModelConfig, batch_shape, total_memory: int, *,
     client does not fit."""
     C = int(batch_shape[0])
     budget = USABLE_SHARE * total_memory
-    kw = dict(edges=edges, opt_rows=opt_rows, method=method, stored=stored)
+    kw = dict(edges=edges, opt_rows=opt_rows, method=method, stored=stored,
+              quant=quant, late=late)
     fits = [k for k in range(1, C + 1)
             if round_bytes(cfg, batch_shape, k, **kw) <= budget]
     if not fits:
@@ -501,7 +530,8 @@ def chunk_bounds(C: int, k: int):
 def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                       method: str = "fedphd", sparse: bool = False,
                       groups=None, lr: float = 2e-4, prune_masks=None,
-                      max_clients: Optional[int] = None, stored: int = 0):
+                      max_clients: Optional[int] = None, stored: int = 0,
+                      quant: str = "none"):
     """The vectorized round for ``method``'s clients.
 
     ``sparse`` with ``groups`` adds Omega to the loss (one client-axis
@@ -509,8 +539,15 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
     device row, shared by every client) switches the U-Net to the masked
     sparse-phase forward.
 
+    ``quant`` ("none", "int8", "fp8": :mod:`repro_torch.fl.compress`)
+    turns on the quantized uplink: given the clients' error-feedback rows
+    (``err=``), the engine runs each client's delta through the
+    quantize -> dequantize round trip, aggregates the reconstructed
+    ``start + deq`` (what the edge decodes) and returns the new residual
+    rows.  Late deltas and SCAFFOLD's variates stay fp32.
+
     Returns ``engine(edge_params, edge_idx, batches, valid, draws, w_mat,
-    ctx=None, opt_states=None)`` where
+    ctx=None, opt_states=None, w_late=None, err=None)`` where
 
       edge_params: tree, leaves (E, ...): each edge server's model (the
                    flat baselines: E = 1, the global model)
@@ -526,14 +563,22 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                    ``local_params`` rows replace the start's decoder
       opt_states:  stacked per-client Adam rows; None starts every
                    client's Adam from zeros
+      w_late:      optional (E, C) float32 staleness rows over the late
+                   clients' deltas (their shares of the round's samples,
+                   unnormalized; their ``w_mat`` entries are zero)
+      err:         (C, ...) fp32 error-feedback rows (with ``quant``)
 
     and the result is a dict: ``"agg"``, the edge-aggregated models with a
     leading (E,) axis (fp32 sums, integer leaves rounded); ``"losses"``,
     the (C,) host mean losses; ``"opt"``, the updated Adam rows (when
     ``opt_states`` was given); ``"trained"``, the (C, ...) trained
-    models (MOON, FedDiffuse); and for SCAFFOLD ``"c_new"``, the (C, ...)
-    c_i+ = c_i - c + scale_i (x - y_i) rows, with x the client's start
-    model, and ``"dc_mean"``, the uniform mean of c_i+ - c_i.
+    models (MOON, FedDiffuse); ``"late"``, the (E, ...) fp32 sums
+    ``sum_c w_late[e, c] (trained_c - start_c)`` (with ``w_late``),
+    added chunk after chunk; ``"err"``, the (C, ...) new residual rows
+    (with ``quant``; the caller keeps only the on-time reporters'); and
+    for SCAFFOLD ``"c_new"``, the (C, ...) c_i+ = c_i - c + scale_i (x -
+    y_i) rows, with x the client's start model, and ``"dc_mean"``, the
+    uniform mean of c_i+ - c_i.
 
     The clients train in chunks (:func:`client_chunk` on a CUDA device,
     all C at once on the CPU), the ctx rows sliced with them; ``stored``
@@ -547,10 +592,11 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
     axes = CTX_AXES[method]
 
     def engine(edge_params, edge_idx, batches, valid, draws, w_mat,
-               ctx=None, opt_states=None):
+               ctx=None, opt_states=None, w_late=None, err=None):
         ctx = ctx or {}
         device = tree_leaves(edge_params)[0].device
         C = valid.shape[0]
+        quantized = quant != "none" and err is not None
         if max_clients is not None:
             k = min(max_clients, C)
         elif device.type == "cuda":
@@ -559,25 +605,32 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                 torch.cuda.get_device_properties(device).total_memory,
                 edges=tree_leaves(edge_params)[0].shape[0],
                 opt_rows=opt_states is not None, method=method,
-                stored=stored)
+                stored=stored, quant=quantized, late=w_late is not None)
         else:
             k = C
+        wl = None if w_late is None else torch.as_tensor(
+            np.asarray(w_late, np.float32), device=device)
         bounds = chunk_bounds(C, k)
         edge_idx = np.asarray(edge_idx)
         local = ctx.get("local_params")
-        step_losses, out, dc = [], {}, None
+        step_losses, out, dc, late = [], {}, None, None
 
         def rows(tree, a, b):
             return tree_map(lambda x: x[a:b], tree)
 
         def start_rows(a, b):
             """The chunk's start models, read in place where they all
-            start from one edge (the flat round)."""
+            start from one edge (the flat round), FedDiffuse's decoders
+            from its local rows."""
             if len(set(edge_idx[a:b].tolist())) == 1:
                 e = int(edge_idx[a])
-                return tree_map(lambda leaf: leaf[e:e + 1], edge_params)
-            idx = torch.as_tensor(edge_idx[a:b], device=device)
-            return tree_map(lambda leaf: leaf[idx], edge_params)
+                pick = lambda leaf: leaf[e:e + 1]
+            else:
+                idx = torch.as_tensor(edge_idx[a:b], device=device)
+                pick = lambda leaf: leaf[idx]
+            return {name: rows(local[name], a, b)
+                    if local is not None and name in local else
+                    tree_map(pick, sub) for name, sub in edge_params.items()}
 
         def start(a, b):
             idx = torch.as_tensor(edge_idx[a:b], device=device)
@@ -611,9 +664,24 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                 lambda: start(a, b), rows(batches, a, b), valid[a:b],
                 tuple(d[a:b] for d in draws), cctx or None)
             step_losses.append(losses)
+            x = start_rows(a, b) if quantized or wl is not None \
+                or method == "scaffold" else None
+            if wl is not None:
+                # the late clients' deltas, fp32, leaf by leaf
+                part = tree_map(lambda y, x_: combine_leaf(
+                    y.float() - x_.float(), wl[:, a:b]), p, x)
+                late = part if late is None else tree_map(torch.add, late,
+                                                          part)
+                del part
+            if quantized:
+                recon, new_err = ef_roundtrip_stacked(
+                    p, rows(err, a, b), quant, start=x)
+                put("recon", recon, a, b)
+                put("err", new_err, a, b)
+                del recon, new_err
             if method == "scaffold":
                 c_new = scaffold_update(cctx["c_local"], cctx["c_global"],
-                                        start_rows(a, b), p, cctx["scale"])
+                                        x, p, cctx["scale"])
                 uni = torch.full((b - a,), 1.0 / C, dtype=torch.float32,
                                  device=device)
                 part = tree_map(lambda n, o_: combine_leaf(n - o_, uni),
@@ -621,15 +689,20 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                 dc = part if dc is None else tree_map(torch.add, dc, part)
                 put("c_new", c_new, a, b)
                 del c_new
-            put("trained", p, a, b)
+            if not quantized or method in KEEPS_TRAINED:
+                put("trained", p, a, b)
             if opt_states is not None:
                 put("opt", o, a, b)
-            del p, o
-        trained = out.pop("trained")
-        out.update(agg=weighted_average_stacked(trained, w_mat),
+            del p, o, x
+        # the edge decodes start + deq when the uplink is quantized
+        sent = out.pop("recon") if quantized else out["trained"]
+        out.update(agg=weighted_average_stacked(sent, w_mat),
                    losses=client_means(torch.cat(step_losses), valid))
-        if method in ("moon", "feddiffuse"):
-            out["trained"] = trained
+        del sent
+        if method not in KEEPS_TRAINED:
+            out.pop("trained", None)
+        if wl is not None:
+            out["late"] = late
         if method == "scaffold":
             out["dc_mean"] = dc
         return out

@@ -6,9 +6,9 @@
 ``eval`` carries the eval hook's result: a trainer calls
 ``eval_fn(params, cfg, round)`` every ``eval_every`` rounds and stores
 what it returns here (JSON-serializable, for checkpointed histories).
-The reference's ``availability`` field comes with faults (ROADMAP
-A.10); :meth:`RoundRecord.from_dict` drops it from a reference
-history."""
+``availability`` is the round's realized fault schedule
+(:meth:`repro_torch.fl.faults.RoundFaults.availability`), None when
+faults are off."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +19,10 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 class RoundRecord:
     """One communication round.  ``edge_sh`` holds the per-edge SH
     scores; ``pruned`` marks the round whose cloud aggregation compacted
-    the model; ``comm_gb == comm_up_gb + comm_down_gb``."""
+    the model; ``comm_gb == comm_up_gb + comm_down_gb``;
+    ``availability`` is ``{"online": int, "arrived"/"dropped"/"late":
+    [cids], "budgets": [steps a selected client]}`` under an enabled
+    fault spec, else None."""
     round: int
     loss: float
     comm_gb: float
@@ -30,6 +33,7 @@ class RoundRecord:
     eval: Any = None
     edge_sh: Optional[List[float]] = None
     pruned: bool = False
+    availability: Optional[dict] = None
 
     def __getitem__(self, key: str):
         if key not in self.__dataclass_fields__:

@@ -493,24 +493,28 @@ def test_draw_round_moon_matches_sequential_calls():
 # ---------------------------------------------------------------------------
 
 def test_registry_and_refusals():
-    """The five flat methods are registered as "flat"; the staleness
-    variants raise naming A.10; every unported FlatTrainer option
-    raises naming its item; without a card the default device raises."""
+    """The five flat methods and ``fedavg-stale`` are registered as
+    "flat", ``fedphd-stale`` as "hierarchical"; faults, the quantized
+    uplink and the staleness aggregation (FedAvg only) are accepted;
+    every unported FlatTrainer option raises naming its item; without a
+    card the default device raises."""
     assert set(METHODS) <= set(registered_methods())
     assert all(method_entry(m).topology == "flat" for m in METHODS)
-    for name in ("fedavg-stale", "fedphd-stale"):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            method_entry(name)
+    assert method_entry("fedavg-stale").topology == "flat"
+    assert method_entry("fedphd-stale").topology == "hierarchical"
     clients = _tiny_clients(tdata.ClientData, tclient.Client)
     fl = FLConfig(num_clients=4)
-    for kw, item in ((dict(fault=FaultSpec(dropout=0.5)), "A.10"),
-                     (dict(quant="int8"), "A.10"),
-                     (dict(aggregation="staleness"), "A.10"),
-                     (dict(mesh={"data": 2}), "A.13"),
+    for kw in (dict(fault=FaultSpec(dropout=0.5)), dict(quant="int8"),
+               dict(aggregation="staleness")):
+        baselines.FlatTrainer("fedavg", CFG, fl, clients, device="cpu", **kw)
+    for kw, item in ((dict(mesh={"data": 2}), "A.13"),
                      (dict(tracer=object()), "A.11")):
         with pytest.raises(NotImplementedError, match=item):
             baselines.FlatTrainer("fedavg", CFG, fl, clients, device="cpu",
                                   **kw)
+    with pytest.raises(ValueError, match="FedAvg variant"):
+        baselines.FlatTrainer("moon", CFG, fl, clients, device="cpu",
+                              aggregation="staleness")
     with pytest.raises(ValueError, match="method"):
         baselines.FlatTrainer("fedphd", CFG, fl, clients, device="cpu")
     if not torch.cuda.is_available():

@@ -696,4 +696,4 @@ def test_trainer_needs_a_card_unless_given_cpu():
         FedPhD(CFG, fl, _clients(tdata, tclient))
     with pytest.raises(ValueError, match="aggregation"):
         FedPhD(CFG, fl, _clients(tdata, tclient), device="cpu",
-               aggregation="staleness")
+               aggregation="median")

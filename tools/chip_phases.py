@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Runs single phases of ``chip_smoke.py`` on the card, for iterating on one.
 
-  python3 tools/chip_phases.py [memory] [baselines] [centralized] [check]
+  python3 tools/chip_phases.py [memory] [baselines] [centralized] [bf16]
+                               [faults] [quant] [quantmem] [check]
 
 Builds the kernels, then runs the named phases of ``chip_smoke.py`` in
-the order given (default: all four): ``memory`` is
+the order given (default: all): ``memory`` is
 ``baselines_memory_phase``, ``baselines`` is ``baselines_phase`` (its
-three line kinds), ``centralized`` is ``centralized_phase``, and
-``check`` (after ``baselines``) holds every matmul and attention shape
-that phase launched against the plain versions (``check_matmul``,
-``check_attention``).  A failed check is printed and the run goes on to
+three line kinds), ``centralized`` is ``centralized_phase``, ``bf16``
+one fp32 vectorized ``train_run`` and ``train_bf16_phase`` against it,
+``faults`` is ``faults_phase``, ``quant`` is ``quant_phase``,
+``quantmem`` is ``quant_memory_phase``, and ``check`` (last) holds
+every matmul, attention and group-L2 shape the phases before it
+launched against the plain versions (``check_matmul``,
+``check_attention``, ``check_group_l2``).  A failed check is printed and
+the run goes on to
 the next phase, where ``chip_smoke.py`` stops; the last line lists the
 failures, and the exit code is 1 if there was one.  Needs one CUDA card
 and nvcc.
@@ -26,7 +31,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("memory", "baselines", "centralized", "check")
+PHASES = ("memory", "baselines", "centralized", "bf16", "faults", "quant",
+          "quantmem", "check")
 
 
 def main(argv) -> int:
@@ -71,17 +77,29 @@ def main(argv) -> int:
             print(f"CHECK FAILED: {what}", flush=True)
     cs.require = record
 
-    tally = None
+    tally = {}
     for phase in which:
         t0 = time.perf_counter()
         try:
             if phase == "memory":
                 cs.baselines_memory_phase(dev)
             elif phase == "baselines":
-                tally = cs.baselines_phase(dev, counters, zero)
+                cs.merge_tally(tally, cs.baselines_phase(dev, counters, zero))
             elif phase == "centralized":
                 cs.centralized_phase(dev)
-            elif phase == "check" and tally is not None:
+            elif phase == "bf16":
+                from repro_torch.configs import CIFAR10_UNET
+                fp32 = cs.train_run(CIFAR10_UNET, dev, "vectorized",
+                                    counters, zero)
+                cs.merge_tally(tally, cs.train_bf16_phase(
+                    CIFAR10_UNET, dev, counters, zero, fp32))
+            elif phase == "faults":
+                cs.merge_tally(tally, cs.faults_phase(dev, counters, zero))
+            elif phase == "quant":
+                cs.merge_tally(tally, cs.quant_phase(dev, counters, zero))
+            elif phase == "quantmem":
+                cs.quant_memory_phase(dev)
+            elif phase == "check" and tally:
                 mm, dx = tally["block_masked_matmul"], \
                     tally["block_masked_matmul_dx"]
                 fwd = [k for k in mm if mm[k] > dx.get(k, 0)]
@@ -96,10 +114,19 @@ def main(argv) -> int:
                 att = [((k[0], k[1], k[2], k[3]), k[4], k[5], k[6], k)
                        for k in tally["flash_attention"]]
                 att_err = cs.check_attention(att, gen, dev, rows.append)
+                l2_err = cs.check_group_l2(
+                    sorted(tally.get("group_l2_norms", {})), gen, dev,
+                    rows.append)
                 print(json.dumps({"matmul_cases": len(cases),
                                   "matmul_err": mm_err,
                                   "attention_cases": len(att),
-                                  "attention_err": att_err}), flush=True)
+                                  "attention_err": att_err,
+                                  "group_l2_err": l2_err}), flush=True)
+                os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+                with open(os.path.join(ROOT, "chiprun_out",
+                                       "phase_cases.jsonl"), "w") as f:
+                    for row in rows:
+                        f.write(json.dumps(row, default=str) + "\n")
         except Exception as e:               # report it, run the next phase
             traceback.print_exc()
             fails.append(f"{phase}: {e!r}")
