@@ -129,6 +129,18 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             error-feedback rows (nonzero) and history bit for bit; and the
             card's quantizer bitwise against the CPU's on the same
             deltas (exact ties, values past +-448);
+7f. obs     (run after ``quant_memory``, so the earlier phases' times do
+            not move) the ``train (vectorized)`` cell stepped, pipelined
+            (``run(3)``) and traced, in turns (OBS_RUNS): every run bitwise
+            the first's; the trace's phase counts, ``overlap_ratio``,
+            compiles (the plan and table caches cleared before the traced
+            run) and no recompile; the pipelined peak within
+            OBS_PEAK_SHARE of the stepped; the sync probe (an ``.item()``
+            control must be caught) on rounds 1-4 of the cell and of the
+            cell with persistent Adam rows in the host store, a steady
+            round's syncs within OBS_SYNCS_ALLOWED; 16 requests served
+            dense with ``--trace``: a ``serve/tick`` span a tick, the host
+            caches grown in the first tick only;
 8. kernels  every kernel against its plain PyTorch version on the card at
             each shape the serving, training, LM, experiment and
             baselines runs launched it with
@@ -333,6 +345,18 @@ IMAGE = (32, 32, 3)
 # the paper preset's round (20 clients, 8 steps each), for the chunk size
 PAPER_CLIENTS, PAPER_STEPS = 20, 8
 CENTRAL_STEPS = 8
+OBS_PHASES = ("round/host_prep", "round/h2d", "round/dispatch",
+              "round/loss_sync")
+# the runs in turns: the stepped and pipelined pair around the traced run
+OBS_RUNS = ("stepped", "pipelined", "traced", "pipelined", "stepped")
+OBS_PEAK_SHARE = 0.02            # pipelined peak over the stepped one
+# the trainers the sync probe runs, by label: the cell's, and the cell's
+# with persistent Adam rows in the host store
+OBS_PROBES = {"default": {},
+              "host_store": dict(persistent_opt=True, state_store="host")}
+# synchronizing calls a steady-state vectorized _start_round may make
+# (file:line; ROADMAP B.5 lists them)
+OBS_SYNCS_ALLOWED = ()
 TPU_KERNELS = {
     "block_masked_matmul":
         "src/repro/kernels/block_masked_matmul/block_masked_matmul.py:43",
@@ -971,10 +995,224 @@ def lm_consistency_phase(cfg, dev, counters, zero_counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 7f: the obs layer and the pipelined rounds
+# ---------------------------------------------------------------------------
+
+def _host_state(trainer):
+    """The run's params on the host and its history, for comparing runs
+    bit for bit after their trainers are gone."""
+    from repro_torch.tree import tree_leaves
+    return ([t.detach().cpu() for t in tree_leaves(trainer.params)],
+            [h.to_dict() for h in trainer.history])
+
+
+def _same_state(a, b) -> bool:
+    import torch
+    return a[1] == b[1] and len(a[0]) == len(b[0]) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a[0], b[0]))
+
+
+def sync_probe(trainer, r):
+    """The synchronizing CUDA calls of ``trainer._start_round(r)``, under
+    ``torch.cuda.set_sync_debug_mode("warn")``, each by the innermost
+    frame of the repo's code on the Python stack when it warned (the
+    call site; the warning itself names torch's frame).  Only warnings
+    raised inside the call count (turning the mode on warns by itself).
+    A control, one ``.item()`` in the same mode, must be caught.  The
+    round is then finished as usual.  Returns (sorted "file:line" list,
+    the synchronizing calls, the control's calls)."""
+    import traceback
+    import warnings
+    import torch
+
+    src = os.path.join(HERE, "src") + os.sep
+    sites, live = [], [False]
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if not live[0] or "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if f.filename.startswith(src)]
+        f = ours[-1] if ours else None
+        sites.append(f"{os.path.relpath(f.filename, HERE)}:{f.lineno}"
+                     if f else f"{filename}:{lineno}")
+
+    def probed(fn):
+        del sites[:]
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            live[0] = True
+            try:
+                return fn()
+            finally:
+                live[0] = False
+                torch.cuda.set_sync_debug_mode(0)
+
+    x = torch.ones((), device=trainer.device)
+    probed(lambda: x.item())
+    control = len(sites)
+    pend = probed(lambda: trainer._start_round(r))
+    found = sorted(set(sites)), len(sites)
+    trainer._finish_round(pend)
+    return found + (control,)
+
+
+def obs_phase(cfg, dev, out_dir):
+    """The ``train (vectorized)`` cell three ways, in turns (OBS_RUNS):
+    untraced and stepped (``run_round`` in a loop), untraced and
+    pipelined (one ``run(3)``), and traced and pipelined after the
+    matmul plans and group-L2 tables were cleared.  Every run must give
+    the first one's params and histories bit for bit; the trace's
+    summary must count each round phase three times, the prune once,
+    compiles (the first round's fill) and no recompile; the pipelined
+    run must peak within OBS_PEAK_SHARE of the stepped one.
+    Then, untimed, the sync probe (:func:`sync_probe`) on each round of
+    the cell and a fourth, steady one (plain, no prune), for each of
+    OBS_PROBES: the synchronizing calls of the default trainer's steady
+    round must be OBS_SYNCS_ALLOWED, and its state after round 3 the
+    first run's.  Then the
+    dense serving run of phase 3 again with ``--trace``: one
+    ``serve/tick`` span a tick, the host caches filled on the first tick
+    and not grown after it."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.configs.base import config_to_dict
+    from repro_torch.core.pruning import criteria
+    from repro_torch.kernels.block_masked_matmul import ops as bmm
+    from repro_torch.kernels.group_l2_norms import ops as gl2
+    from repro_torch.models.unet import init_unet
+    from repro_torch.obs.metrics import summarize_trace
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve import __main__ as serve_cli
+
+    os.makedirs(out_dir, exist_ok=True)
+
+    def clear_caches():
+        bmm.plan.cache_clear()
+        gl2.table.cache_clear()
+        # the per-group-list table dicts in front of table()
+        criteria._layout.cache_clear()
+
+    runs, states = {m_: [] for m_ in set(OBS_RUNS)}, []
+    trace_path = os.path.join(out_dir, "obs_trace.jsonl")
+    if os.path.exists(trace_path):
+        os.remove(trace_path)
+    for mode in OBS_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if mode == "traced":
+            clear_caches()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = make_trainer(cfg, dev, "vectorized")
+        tracer = None
+        if mode == "traced":
+            tracer = Tracer(trace_path)
+            trainer.bind_tracer(tracer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "stepped":
+            for r in (1, 2, 3):
+                trainer.run_round(r)
+        else:
+            trainer.run(3)
+        torch.cuda.synchronize()
+        runs[mode].append({"wall_s": time.perf_counter() - t0,
+                           "peak_bytes": torch.cuda.max_memory_allocated(dev)
+                           - base})
+        states.append(_host_state(trainer))
+        if tracer is not None:
+            tracer.close()
+        del trainer
+    summary = summarize_trace(trace_path)
+    phases = {k: v["n"] for k, v in summary["phases"].items()}
+
+    # the sync probe, untimed: every round of the cell and a fourth,
+    # steady one (plain, no prune), and the same with persistent Adam
+    # rows in the host store
+    syncs, controls = {}, []
+    for label, kw in OBS_PROBES.items():
+        trainer = make_trainer(cfg, dev, "vectorized", **kw)
+        syncs[label] = {}
+        for r in (1, 2, 3, 4):
+            found, n, control = sync_probe(trainer, r)
+            syncs[label][r] = found
+            controls.append(control)
+            if r == 3 and not kw:
+                states.append(_host_state(trainer))
+        del trainer
+    emit("obs", run="sync_probe", rounds=syncs, controls=controls)
+
+    # serving, dense, traced: the caches cleared so the first tick fills
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    sparams = randomize(init_unet(cfg, gen, device=dev), gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        checkpoint.save(ckpt, {"params": sparams},
+                        {"cfg": config_to_dict(cfg)})
+        del sparams
+        clear_caches()
+        serve_trace = os.path.join(out_dir, "obs_serve_trace.jsonl")
+        if os.path.exists(serve_trace):
+            os.remove(serve_trace)
+        m = serve_cli.main(["--ckpt", ckpt, "--requests", "16", "--slots",
+                            "8", "--steps", "10", "--trace", serve_trace])
+    served = summarize_trace(serve_trace)
+    ticks = served["phases"].get("serve/tick", {}).get("n", 0)
+    ok_bitwise = [_same_state(st, states[0]) for st in states[1:]]
+    steady = syncs["default"][4]
+    wall = {m_: sum(x["wall_s"] for x in v) for m_, v in runs.items()}
+    peak = {m_: max(x["peak_bytes"] for x in v) for m_, v in runs.items()}
+    emit("obs", cell="train (vectorized)", runs=runs,
+         bitwise_equal=ok_bitwise, overlap_ratio=summary["overlap_ratio"],
+         overlap_hidden_s=summary["overlap_hidden_s"],
+         overlap_window_s=summary["overlap_window_s"],
+         phases=phases, rounds=summary["rounds"],
+         compiles=summary["compiles"], recompiles=summary["recompiles"],
+         order=list(OBS_RUNS),
+         pipelined_vs_stepped=wall["pipelined"] / wall["stepped"],
+         peak_ratio=peak["pipelined"] / peak["stepped"],
+         steady_round_syncs=steady,
+         serve_ticks=ticks, serve_images=m["images"],
+         serve_compiles=served["compiles"],
+         serve_recompiles=served["recompiles"],
+         serve_requests_per_s=m["requests_per_s"])
+    require(all(ok_bitwise),
+            f"obs: runs {OBS_RUNS[1:]} and the probed one against the "
+            f"first: {ok_bitwise}")
+    require(all(phases.get(p, 0) == 3 for p in OBS_PHASES)
+            and phases.get("round/prune", 0) == 1,
+            f"obs: phase counts {phases}")
+    require(summary["rounds"] == 3 and summary["recompiles"] == 0
+            and summary["compiles"] >= 1,
+            f"obs: rounds {summary['rounds']}, compiles "
+            f"{summary['compiles']}, recompiles {summary['recompiles']}")
+    require(summary["overlap_ratio"] is not None
+            and 0.0 <= summary["overlap_ratio"] <= 1.0,
+            f"obs: overlap ratio {summary['overlap_ratio']}")
+    require(peak["pipelined"] <= (1 + OBS_PEAK_SHARE) * peak["stepped"],
+            f"obs: pipelined peak {peak['pipelined']} vs stepped "
+            f"{peak['stepped']}")
+    require(min(controls) >= 1, "obs: the sync probe missed its "
+            "control's .item()")
+    require(set(steady) <= set(OBS_SYNCS_ALLOWED),
+            f"obs: a steady-state round synchronizes at {steady}")
+    require(m["images"] == 16 and ticks == 20
+            and served["compiles"] >= 1 and served["recompiles"] == 0,
+            f"obs: serve {m['images']} images, {ticks} tick spans (want "
+            f"20), compiles {served['compiles']}, recompiles "
+            f"{served['recompiles']}")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
-def make_trainer(cfg, dev, engine, precision="fp32"):
+def make_trainer(cfg, dev, engine, precision="fp32", **kw):
     """The port's FedPhD on ``engine`` over 320 synthetic CIFAR-10-like
     images: 4 clients holding 2 classes each, batch 32, 2 edges, 3
     rounds with R_s = 2 (round 1 sparse, the prune at round 2's cloud
@@ -996,7 +1234,7 @@ def make_trainer(cfg, dev, engine, precision="fp32"):
                   local_epochs=1, edge_agg_every=1, cloud_agg_every=1,
                   rounds=3, sparse_rounds=2, prune_ratio=0.44)
     return FedPhD(cfg.replace(precision=precision), fl, clients, device=dev,
-                  lr=TRAIN_LR, engine=engine)
+                  lr=TRAIN_LR, engine=engine, **kw)
 
 
 def train_run(cfg, dev, engine, counters, zero_counters, precision="fp32"):
@@ -3040,6 +3278,9 @@ def run(out_dir: str, profile: bool = False) -> dict:
     engine_memory_phase(cfg, rparams, gen, dev)
     baselines_memory_phase(dev)
     quant_memory_phase(dev)
+
+    # -- 7f. the obs layer: traced, pipelined and stepped runs -------------
+    obs_phase(cfg, dev, out_dir)
 
     # -- 9. full-width forward: kernels vs plain versions --------------------
     # The plain forward runs on CPU copies: device dispatch picks the plain

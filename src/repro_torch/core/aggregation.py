@@ -2,9 +2,9 @@
 FedPhD's homogeneity-aware weighting (paper Eqs. 21-24) and the uniform
 weights of SCAFFOLD's control-variate mean.
 
-The weights are host numpy; the weighted sums run on the parameters'
-device, one stacked fp32 contraction per leaf, identical at the edge and
-the cloud tiers.
+The weights are host numpy, uploaded without blocking the host; the
+weighted sums run on the parameters' device, one stacked fp32
+contraction per leaf, identical at the edge and the cloud tiers.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import host_to_device
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -41,15 +42,15 @@ def weighted_average_stacked(stacked_tree, weights):
     stacked tree; ``weights`` (N,) gives one tree, a (G, N) matrix of
     rows (the vectorized engine's (E, C) edge rows) G trees stacked on a
     leading axis.  The rows are used as given (callers normalize)."""
-    w = torch.as_tensor(np.asarray(weights, np.float32),
-                        device=tree_leaves(stacked_tree)[0].device)
+    w = host_to_device(np.asarray(weights, np.float32),
+                       tree_leaves(stacked_tree)[0].device)
     return tree_map(lambda leaf: combine_leaf(leaf, w), stacked_tree)
 
 
 def weighted_average(param_trees: Sequence, weights: Sequence[float]):
     """sum_i w_i theta_i with the weights normalized to 1."""
     w = normalize_weights(weights).astype(np.float32)
-    wt = torch.from_numpy(w).to(tree_leaves(param_trees[0])[0].device)
+    wt = host_to_device(w, tree_leaves(param_trees[0])[0].device)
     return tree_map(lambda *leaves: combine_leaf(torch.stack(leaves), wt),
                     *param_trees)
 

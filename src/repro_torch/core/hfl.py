@@ -33,14 +33,27 @@ on-time clients' uplink with per-client error feedback
 
 ``eval_fn(params, cfg, round)`` runs every ``eval_every`` rounds after
 the round's record is appended, its result in ``RoundRecord.eval``.
+
+A round is two halves, as in the reference: ``_start_round`` selects,
+stages the data, dispatches local training and aggregates; on the
+vectorized engine nothing there waits for the device, and the round's
+(C,) losses stay on it.  ``_finish_round`` syncs them (the round's one
+sync) and appends the record.  ``run()`` double-buffers rounds: round
+r+1 is dispatched before round r is finished, so the host's data prep
+and upload for r+1 overlap r's device work; the numbers are those of a
+``run_round`` loop, bit for bit.  ``tracer=`` (:mod:`repro_torch.obs`)
+records each phase as a span (``round/host_prep``, ``round/h2d``,
+``round/dispatch``, ``round/edge_agg``, ``round/cloud_agg``,
+``round/prune``, ``round/loss_sync``), the fault draws as events and
+the host caches' growth as counters.
+
 ``state()`` and ``restore()`` carry everything the trajectory depends
 on, in the reference's keys and layout, so a checkpoint crosses between
 the packages both ways; the port adds the generator's state
 (``torch_rng``), the one stream that cannot cross.  A resumed run is
 bitwise equal to an unbroken one on the CPU.
 
-Not ported yet, and refused: meshes (ROADMAP A.13); tracing (A.11) is
-refused by the experiment API.
+Not ported yet, and refused: meshes (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -62,7 +75,7 @@ from repro_torch.core.selection import random_selection, select_edge
 from repro_torch.core.sh_score import (AccumulatedDistribution, sh_score,
                                        uniform_target)
 from repro_torch.data.pipeline import stack_round
-from repro_torch.device import resolve_device
+from repro_torch.device import host_to_device, resolve_device
 from repro_torch.experiment.resolve import resolve_engine, resolve_precision
 from repro_torch.fl.client import Client, make_local_step, run_local
 from repro_torch.fl.comm import CommModel
@@ -78,6 +91,8 @@ from repro_torch.fl.faults import (FaultSpec, edge_weight_rows, late_delta,
                                    merge_late)
 from repro_torch.fl.record import RoundRecord, RunResult, evals_of
 from repro_torch.models import model
+from repro_torch.obs.compile_tracker import tracker_for
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim import adam_init
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -91,6 +106,45 @@ def prng_key(seed: int) -> np.ndarray:
     saves it as ``rng``, so the reference can load the port's
     checkpoint."""
     return np.asarray([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def sync_losses(trainer, pend: Dict) -> list:
+    """A pending round's per-client losses on the host.  The vectorized
+    engine's (C,) device losses are synced here, once (``round/loss_sync``),
+    and the round's local seconds, from its upload to this sync, are
+    appended to ``trainer.round_seconds``; the sequential engine's are a
+    host list already."""
+    losses = pend["losses"]
+    if isinstance(losses, torch.Tensor):
+        with trainer._obs.span("round/loss_sync", round=pend["round"]):
+            losses = losses.tolist()
+        trainer.round_seconds.append(time.perf_counter() - pend["t_local"])
+    return losses
+
+
+def run_pipelined(trainer, rounds: int) -> None:
+    """Rounds ``len(history)+1 .. rounds`` of ``trainer`` (``FedPhD`` or
+    ``FlatTrainer``), double-buffered: round r+1 is dispatched
+    (``_start_round``) before round r is finished (``_finish_round``:
+    its loss sync, record and eval), so the host's data prep and upload
+    for r+1 overlap r's device work.  Records are finished in round
+    order, and every number equals a ``run_round`` loop's."""
+    pend = None
+    try:
+        for r in range(len(trainer.history) + 1, rounds + 1):
+            cur = trainer._start_round(r)
+            # cur is guarded before prev is finished: if prev's eval
+            # raises, prev is in the history (appended before the eval)
+            # and the finally still finishes cur
+            prev, pend = pend, cur
+            if prev is not None:
+                trainer._finish_round(prev)
+    finally:
+        # a raising _start_round must not orphan the round dispatched
+        # before it; finish it only where it extends the history without
+        # a gap
+        if pend is not None and len(trainer.history) == pend["round"] - 1:
+            trainer._finish_round(pend)
 
 
 class FedPhD:
@@ -119,8 +173,9 @@ class FedPhD:
     ``eval_every`` rounds and its result stored in ``RoundRecord.eval``.
     fault: a :class:`repro_torch.fl.faults.FaultSpec`; a disabled one is
     None.  quant: the uplink's dtype, "none", "int8" or "fp8".
-    mesh: the reference's; anything but None raises NotImplementedError
-    (ROADMAP A.13).
+    tracer: a :class:`repro_torch.obs.Tracer` (or :meth:`bind_tracer`
+    later); None records nothing.  mesh: the reference's; anything but
+    None raises NotImplementedError (ROADMAP A.13).
     """
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, clients: List[Client],
@@ -130,7 +185,11 @@ class FedPhD:
                  persistent_opt: bool = False, state_store: str = "auto",
                  mesh=None, eval_fn: Optional[Callable] = None,
                  eval_every: int = 0, fault: Optional[FaultSpec] = None,
-                 quant: str = "none", device="cuda"):
+                 quant: str = "none", tracer=None, device="cuda"):
+        # NULL_TRACER (the default) makes every span, event and counter
+        # a no-op; tracing never draws, reads the device or syncs
+        self._obs = NULL_TRACER
+        self._obs_compile = None
         if mesh is not None:
             raise NotImplementedError("FedPhD(mesh=...): the mesh-sharded "
                                       "client axis is ROADMAP A.13")
@@ -185,13 +244,24 @@ class FedPhD:
         self._edge_models: Optional[Dict[int, dict]] = None
         # host seconds of every sequential local step, each ending in its
         # loss sync, and of every vectorized round's local training, from
-        # the batches' upload to the round's loss sync
+        # the batches' upload to the round's loss sync in _finish_round
         self.step_seconds: List[float] = []
         self.round_seconds: List[float] = []
+        self._t_local: Optional[float] = None
 
         if prune and fl.prune_mode.startswith("oneshot"):
             self._prune_now(mode=fl.prune_mode)
         self._rebuild_steps()
+        if tracer is not None:
+            self.bind_tracer(tracer)
+
+    # -- observability -------------------------------------------------------
+    def bind_tracer(self, tracer) -> None:
+        """Attach an obs tracer (:mod:`repro_torch.obs`): later rounds emit
+        phase spans, fault events and host-cache counters through it.
+        None (or the NULL_TRACER) keeps the no-op path."""
+        self._obs = tracer if tracer is not None else NULL_TRACER
+        self._obs_compile = tracker_for(self._obs)
 
     # -- pruning ------------------------------------------------------------
     def _prune_now(self, mode: str) -> None:
@@ -234,6 +304,10 @@ class FedPhD:
         self._err_stack = stacked_zeros(
             self.params, len(self.clients), dtype=torch.float32,
             host=self._store == "host") if self.quant != "none" else None
+        if self._obs_compile is not None:
+            # a re-watch grants one more check with growth: the
+            # compacted model's new shapes after the prune are expected
+            self._obs_compile.watch_host_caches()
 
     def _stored_copies(self) -> int:
         """fp32 model copies this trainer keeps on the card across
@@ -368,25 +442,29 @@ class FedPhD:
         do not report get zero aggregation weight (the reporters'
         renormalized), and late deltas come back through ``w_late``."""
         fl = self.fl
+        obs = self._obs
         up_q, up_f, down = wire
-        order = [(e, cid) for e, cids in assignment.items() for cid in cids]
-        clients = [self.clients[cid] for _, cid in order]
-        # the clients' shuffles in edge-iteration order, as the
-        # sequential loop draws them
-        batches, valid = stack_round([cl.data for cl in clients],
-                                     fl.local_epochs)
-        cid_of = np.asarray([cid for _, cid in order])
-        if faults is not None:
-            valid = faults.truncate(valid, cid_of)
-        t0 = time.perf_counter()
-        batches = {k: torch.as_tensor(v, device=self.device)
-                   for k, v in batches.items()}
-        # the DDPM draws, client after client, in the sequential order
-        draws = draw_round(self.gen, valid, batches["images"].shape[2:],
-                           self.cfg.diffusion_steps, self.device)
-        edge_models = self._edge_models or {}
-        edge_stack = stack_trees([edge_models.get(e, self.params)
-                                  for e in range(fl.num_edges)])
+        with obs.span("round/host_prep", round=r):
+            order = [(e, cid) for e, cids in assignment.items()
+                     for cid in cids]
+            clients = [self.clients[cid] for _, cid in order]
+            # the clients' shuffles in edge-iteration order, as the
+            # sequential loop draws them
+            batches, valid = stack_round([cl.data for cl in clients],
+                                         fl.local_epochs)
+            cid_of = np.asarray([cid for _, cid in order])
+            if faults is not None:
+                valid = faults.truncate(valid, cid_of)
+        self._t_local = time.perf_counter()
+        with obs.span("round/h2d", round=r):
+            batches = {k: host_to_device(v, self.device)
+                       for k, v in batches.items()}
+            # the DDPM draws, client after client, in the sequential order
+            draws = draw_round(self.gen, valid, batches["images"].shape[2:],
+                               self.cfg.diffusion_steps, self.device)
+            edge_models = self._edge_models or {}
+            edge_stack = stack_trees([edge_models.get(e, self.params)
+                                      for e in range(fl.num_edges)])
         edge_idx = np.asarray([e for e, _ in order])
         reporting = np.asarray([faults is None or faults.reporting_of(cid)
                                 for cid in cid_of], bool)
@@ -407,12 +485,12 @@ class FedPhD:
         w_mat, w_late = edge_weight_rows(edge_idx, fl.num_edges, n,
                                          reporting, late, weights)
         engine = self._engine_sparse if sparse_round else self._engine_plain
-        out = engine(edge_stack, edge_idx, batches, valid, draws, w_mat,
-                     opt_states=self._opt_rows(cid_of)
-                     if self.persistent_opt else None, w_late=w_late,
-                     err=self._err_rows(cid_of)
-                     if self.quant != "none" else None)
-        self.round_seconds.append(time.perf_counter() - t0)
+        with obs.span("round/dispatch", round=r):
+            out = engine(edge_stack, edge_idx, batches, valid, draws, w_mat,
+                         opt_states=self._opt_rows(cid_of)
+                         if self.persistent_opt else None, w_late=w_late,
+                         err=self._err_rows(cid_of)
+                         if self.quant != "none" else None)
         if self.persistent_opt:
             # only completed clients keep their moments
             scatter_rows(self._opt_stack, cid_of, out["opt"], completed)
@@ -428,28 +506,31 @@ class FedPhD:
                 up_bytes += self.comm.client_edge(up_f if lt
                                                   else up_q)   # upload
         if r % fl.edge_agg_every == 0:
-            if self._edge_models is None:
-                self._edge_models = {}
-            for e, cids in assignment.items():
-                if not cids:
-                    continue
-                if w_mat[e].any():
-                    agg = tree_map(lambda leaf, _e=e: leaf[_e], out["agg"])
-                else:                         # no reporter: keep the model
-                    agg = edge_models.get(e, self.params)
-                if self.aggregation == "staleness":
-                    agg = merge_late(agg, self._late_buf.pop(e, None),
-                                     self.fault)
-                    if w_late is not None and w_late[e].any():
-                        self._late_buf[e] = tree_map(
-                            lambda leaf, _e=e: leaf[_e], out["late"])
-                self._edge_models[e] = agg
-                n_down = len(cids) if faults is None else sum(
-                    faults.arrived_of(cid) for cid in cids)
-                down_bytes += self.comm.client_edge(down) * n_down
+            with obs.span("round/edge_agg", round=r):
+                if self._edge_models is None:
+                    self._edge_models = {}
+                for e, cids in assignment.items():
+                    if not cids:
+                        continue
+                    if w_mat[e].any():
+                        agg = tree_map(lambda leaf, _e=e: leaf[_e],
+                                       out["agg"])
+                    else:                     # no reporter: keep the model
+                        agg = edge_models.get(e, self.params)
+                    if self.aggregation == "staleness":
+                        agg = merge_late(agg, self._late_buf.pop(e, None),
+                                         self.fault)
+                        if w_late is not None and w_late[e].any():
+                            self._late_buf[e] = tree_map(
+                                lambda leaf, _e=e: leaf[_e], out["late"])
+                    self._edge_models[e] = agg
+                    n_down = len(cids) if faults is None else sum(
+                        faults.arrived_of(cid) for cid in cids)
+                    down_bytes += self.comm.client_edge(down) * n_down
         loss_mask = [faults is None or faults.budget_of(cid) > 0
                      for cid in cid_of]
-        return list(out["losses"]), up_bytes, down_bytes, loss_mask
+        # no sync: the (C,) losses stay on the device until _finish_round
+        return out["losses"], up_bytes, down_bytes, loss_mask
 
     # -- one communication round (Alg. 1 lines 3-32) -------------------------
     def run_round(self, r: int) -> RoundRecord:
@@ -457,7 +538,11 @@ class FedPhD:
 
     def _start_round(self, r: int) -> Dict:
         """Selection, local training, edge and cloud aggregation and (at
-        r >= R_s) pruning; returns what ``_finish_round`` records."""
+        r >= R_s) pruning: everything but the wait for the device's
+        losses.  Returns the pending round ``_finish_round`` records.  On
+        the vectorized engine nothing here syncs outside the prune round
+        (a host store syncs for its rows), so ``run()`` dispatches round
+        r+1 while round r is still on the device."""
         fl = self.fl
         C = max(1, round(fl.participation * len(self.clients)))
         if self._faults is not None:
@@ -492,46 +577,60 @@ class FedPhD:
                      for c in sel_ids]
             faults = self._faults.draw_round(
                 sel_ids, steps, self.aggregation == "staleness")
+            if self._obs.enabled:
+                self._obs.event("fault/draw", round=r, **faults.summary())
         wire = self._wire_bytes()
-        local = self._local_and_edge_vectorized \
-            if self._use_vectorized([self.clients[c] for c in sel_ids]) \
-            else self._local_and_edge_sequential
-        round_losses, up_bytes, down_bytes, loss_mask = local(
-            r, assignment, sparse_round, wire, faults)
+        self._t_local = None
+        if self._use_vectorized([self.clients[c] for c in sel_ids]):
+            round_losses, up_bytes, down_bytes, loss_mask = \
+                self._local_and_edge_vectorized(r, assignment, sparse_round,
+                                                wire, faults)
+        else:
+            # the sequential loop syncs every step: host prep, compute
+            # and aggregation interleave, so it gets one dispatch span
+            with self._obs.span("round/dispatch", round=r):
+                round_losses, up_bytes, down_bytes, loss_mask = \
+                    self._local_and_edge_sequential(
+                        r, assignment, sparse_round, wire, faults)
 
         pruned_this_round = False
         # lines 23-31: cloud aggregation every r_g rounds
         if r % fl.cloud_agg_every == 0 and self._edge_models is not None:
-            models, counts, mus = [], [], []
-            # the edges send fp32 (only the client uplink is quantized)
-            for e, m in self._edge_models.items():
-                models.append(m)
-                counts.append(self.edges[e].n)
-                mus.append(self.edges[e].sh(self.q_u))          # Eq. 20
-                up_bytes += self.comm.edge_cloud(wire[1])       # upload
-            if self.aggregation == "sh":
-                self.params = aggregate_sh(models, counts, mus,
-                                           fl.sh_a, fl.sh_b)    # Eq. 21/22
-            else:
-                self.params = aggregate_fedavg(models, counts)
-            # lines 26-28: structured pruning at r = R_s
-            if (self.prune and not self.pruned
-                    and fl.prune_mode == "group_norm"
-                    and r >= fl.sparse_rounds):
-                self._prune_now(mode="group_norm")
-                self._rebuild_steps()
-                pruned_this_round = True
-                wire = self._wire_bytes()
-                # buffered late deltas have the old shapes
-                self._late_buf = {}
-            # broadcast and refresh (lines 29-31)
-            down_bytes += self.comm.edge_cloud(wire[2]) * fl.num_edges
-            self._edge_models = {e: self.params
-                                 for e in range(fl.num_edges)}
-            for edge in self.edges:
-                edge.refresh()
+            with self._obs.span("round/cloud_agg", round=r):
+                models, counts, mus = [], [], []
+                # the edges send fp32 (only the client uplink is quantized)
+                for e, m in self._edge_models.items():
+                    models.append(m)
+                    counts.append(self.edges[e].n)
+                    mus.append(self.edges[e].sh(self.q_u))      # Eq. 20
+                    up_bytes += self.comm.edge_cloud(wire[1])   # upload
+                if self.aggregation == "sh":
+                    self.params = aggregate_sh(models, counts, mus, fl.sh_a,
+                                               fl.sh_b)         # Eq. 21/22
+                else:
+                    self.params = aggregate_fedavg(models, counts)
+                # lines 26-28: structured pruning at r = R_s
+                if (self.prune and not self.pruned
+                        and fl.prune_mode == "group_norm"
+                        and r >= fl.sparse_rounds):
+                    with self._obs.span("round/prune", round=r):
+                        self._prune_now(mode="group_norm")
+                        self._rebuild_steps()
+                    pruned_this_round = True
+                    wire = self._wire_bytes()
+                    # buffered late deltas have the old shapes
+                    self._late_buf = {}
+                # broadcast and refresh (lines 29-31)
+                down_bytes += self.comm.edge_cloud(wire[2]) * fl.num_edges
+                self._edge_models = {e: self.params
+                                     for e in range(fl.num_edges)}
+                for edge in self.edges:
+                    edge.refresh()
 
+        # what the record and the eval hook read, taken now: a round
+        # dispatched before this one is finished must not leak into it
         return {"round": r, "losses": round_losses,
+                "t_local": self._t_local,
                 "up_bytes": up_bytes, "down_bytes": down_bytes,
                 "sel_ids": sel_ids, "pruned": pruned_this_round,
                 "params": self.params, "cfg": self.cfg,
@@ -541,9 +640,11 @@ class FedPhD:
                 "availability": faults.availability() if faults else None}
 
     def _finish_round(self, pend: Dict) -> RoundRecord:
+        """Sync the pending round's losses and append its record."""
+        r = pend["round"]
         # the round's loss averages the clients that ran a step
-        losses = [x for x, ran in zip(pend["losses"], pend["loss_mask"])
-                  if ran]
+        losses = [x for x, ran in zip(sync_losses(self, pend),
+                                      pend["loss_mask"]) if ran]
         rec = RoundRecord(
             round=pend["round"],
             loss=float(np.mean(losses)) if losses else 0.0,
@@ -558,21 +659,26 @@ class FedPhD:
         # appended before the eval hook: the round ran and the streams
         # advanced, so a raising eval_fn loses the eval, not the round
         self.history.append(rec)
-        r = pend["round"]
+        if self._obs_compile is not None:
+            # what this round's dispatch built is in the caches by now
+            self._obs_compile.check(round=r)
         if self.eval_fn and self.eval_every and r % self.eval_every == 0:
             rec.eval = self.eval_fn(pend["params"], pend["cfg"], r)
+            if self._obs_compile is not None:
+                # the eval samples at its own shapes, off the watched path
+                self._obs_compile.rebase()
         return rec
 
     def run(self, rounds: Optional[int] = None, *,
             eval_every: Optional[int] = None) -> RunResult:
         """Run rounds ``len(history)+1 .. rounds`` (default
         ``fl.rounds``; after ``restore`` the run continues).
-        ``eval_every`` replaces the trainer's cadence."""
+        ``eval_every`` replaces the trainer's cadence.  The rounds are
+        double-buffered (:func:`run_pipelined`)."""
         rounds = rounds or self.fl.rounds
         if eval_every is not None:
             self.eval_every = eval_every
-        for r in range(len(self.history) + 1, rounds + 1):
-            self.run_round(r)
+        run_pipelined(self, rounds)
         return RunResult(self.history, evals_of(self.history))
 
     # -- checkpoint state (the experiment API's resume contract) -------------

@@ -13,3 +13,17 @@ def resolve_device(device="cuda") -> torch.device:
                            "available; pass device='cpu' (--device cpu) "
                            "to run the plain versions on the CPU")
     return dev
+
+
+def host_to_device(a, device) -> torch.Tensor:
+    """A host (numpy) array as a tensor on ``device``, without blocking
+    the host: on a CUDA device through a pinned copy and an asynchronous
+    upload (a copy from pageable memory waits for the stream to drain,
+    which would serialize a pipelined round behind the one before it;
+    the caching host allocator keeps the pinned block until its upload
+    is done).  Elsewhere ``torch.as_tensor``, which may share the
+    array's memory."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.as_tensor(a, device=device)
+    return torch.as_tensor(a).pin_memory().to(device, non_blocking=True)

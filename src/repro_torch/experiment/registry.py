@@ -70,17 +70,23 @@ def registered_methods() -> List[str]:
 
 
 def make_trainer(spec: ExperimentSpec, cfg: ModelConfig, clients,
-                 eval_fn=None, *, device="cuda"):
+                 eval_fn=None, *, tracer=None, device="cuda"):
     """Resolve ``spec.method`` and build its trainer on ``device``.
-    Enabled obs raises: tracing is ROADMAP A.11."""
+
+    ``tracer`` (a live :class:`repro_torch.obs.Tracer`) is bound after
+    construction through the trainer's ``bind_tracer``, so the factory
+    signature stays as it is and third-party registrations keep
+    working; a trainer without ``bind_tracer`` is not traced."""
     entry = method_entry(spec.method)
     if spec.topology and spec.topology != entry.topology:
         raise ValueError(f"spec.topology={spec.topology!r} but method "
                          f"{spec.method!r} is {entry.topology}")
-    if spec.obs.resolved_enabled:
-        raise NotImplementedError("obs tracing (spec.obs or $FEDPHD_OBS) "
-                                  "is ROADMAP A.11")
-    return entry.factory(spec, cfg, clients, eval_fn, device)
+    trainer = entry.factory(spec, cfg, clients, eval_fn, device)
+    if tracer is not None and tracer.enabled:
+        bind = getattr(trainer, "bind_tracer", None)
+        if bind is not None:
+            bind(tracer)
+    return trainer
 
 
 # ---------------------------------------------------------------------------

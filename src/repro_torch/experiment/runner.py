@@ -10,8 +10,10 @@ continues a killed run from its checkpoint::
 ``--out`` receives what the reference's runner writes: ``spec.json``,
 ``ckpt.npz`` with ``ckpt.npz.manifest.json`` (the resumable checkpoint,
 which ``python -m repro_torch.serve --ckpt`` serves) and
-``history.json``.  ``--device`` defaults to ``cuda``.  Sweeps, their
-executors and the k8s flags (ROADMAP A.12) and ``--trace`` (A.11) are
+``history.json``.  ``--device`` defaults to ``cuda``.  ``--trace
+[PATH]`` traces the run (:mod:`repro_torch.obs`; bare, to
+``<out>/ckpt.npz.trace.jsonl``) and adds the trace's summary to the
+metrics.  Sweeps, their executors and the k8s flags (ROADMAP A.12) are
 not ported yet and raise.
 """
 from __future__ import annotations
@@ -22,10 +24,11 @@ import os
 from typing import Optional, Sequence
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.experiment.cli import write_metrics
+from repro_torch.experiment.cli import add_obs_flags, write_metrics
 from repro_torch.experiment.resolve import ENGINES, PRECISIONS
 from repro_torch.experiment.run import Experiment, checkpoint_exists, run_spec
 from repro_torch.experiment.spec import DataSpec, ExperimentSpec
+from repro_torch.obs.metrics import summarize_trace
 
 PRESETS = {
     # the CI smoke config: 6 clients / 2 edges on the 16x16 smoke U-Net,
@@ -47,13 +50,11 @@ PRESETS = {
 }
 
 # the reference's flags this port does not run yet -> ROADMAP item
-UNPORTED_FLAGS = {
-    **{f: "A.12 (sweeps, cluster execution)"
-       for f in ("--sweep", "--executor", "--max-workers", "--k8s-fake",
-                 "--image", "--namespace", "--max-runs", "--group-by",
-                 "--timeout-s", "--max-retries")},
-    "--trace": "A.11 (obs tracing)",
-}
+UNPORTED_FLAGS = {f: "A.12 (sweeps, cluster execution)"
+                  for f in ("--sweep", "--executor", "--max-workers",
+                            "--k8s-fake", "--image", "--namespace",
+                            "--max-runs", "--group-by", "--timeout-s",
+                            "--max-retries")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,6 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", choices=ENGINES, help="override spec.engine")
     ap.add_argument("--precision", choices=PRECISIONS,
                     help="override spec.precision")
+    add_obs_flags(ap)
     ap.add_argument("--metrics", default=None,
                     help="write the JSON metrics file here (flat keys + "
                          "{schema, kind})")
@@ -103,6 +105,11 @@ def _apply_overrides(spec: ExperimentSpec,
             (("method", "method"), ("engine", "engine"), ("seed", "seed"),
              ("eval_every", "eval_every"), ("precision", "precision"))
             if getattr(args, a) is not None}
+    if args.trace is not None:
+        # --trace [PATH]: an explicitly enabled ObsSpec that keeps the
+        # spec's other obs knobs (flush_every from a spec file)
+        over["obs"] = spec.obs.replace(enabled=True,
+                                       trace=args.trace or spec.obs.trace)
     return spec.replace(**over) if over else spec
 
 
@@ -126,9 +133,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Experiment:
     if args.resume:
         if not checkpoint_exists(ckpt):
             raise SystemExit(f"--resume: no checkpoint at {ckpt}")
-        exp = run_spec(None, rounds=args.rounds, ckpt=ckpt, resume=True,
-                       save_every=args.save_every, eval_fn=_default_eval,
-                       device=args.device)
+        if args.trace:
+            raise SystemExit("--trace PATH is incompatible with --resume "
+                             "(the resumed trace appends to "
+                             "<out>/ckpt.npz.trace.jsonl); use bare "
+                             "--trace")
+        # a resumed run replays the checkpointed spec, so --trace goes
+        # through the environment leg of the resolution (an explicit
+        # enabled=False in that spec still wins), for this run only
+        env = os.environ.get("FEDPHD_OBS")
+        if args.trace is not None:
+            os.environ["FEDPHD_OBS"] = "on"
+        try:
+            exp = run_spec(None, rounds=args.rounds, ckpt=ckpt, resume=True,
+                           save_every=args.save_every,
+                           eval_fn=_default_eval, device=args.device)
+        finally:
+            if env is None:
+                os.environ.pop("FEDPHD_OBS", None)
+            else:
+                os.environ["FEDPHD_OBS"] = env
     else:
         if args.spec:
             with open(args.spec) as f:
@@ -153,12 +177,21 @@ def main(argv: Optional[Sequence[str]] = None) -> Experiment:
     print(f"[{exp.spec.name}/{exp.spec.method}] round {last.round}: "
           f"loss={last.loss:.4f} params={last.params_m:.2f}M "
           f"total_comm={total_comm:.4f}GB eval={last.eval} -> {args.out}")
+    metrics = {"name": exp.spec.name, "method": exp.spec.method,
+               "rounds": last.round, "loss": last.loss,
+               "params_m": last.params_m, "total_comm_gb": total_comm}
+    if exp.tracer.enabled:
+        exp.tracer.flush()
+        ts = summarize_trace(exp.tracer.path)
+        metrics.update(trace=exp.tracer.path,
+                       overlap_ratio=ts["overlap_ratio"],
+                       compiles=ts["compiles"],
+                       recompiles=ts["recompiles"])
+        print(f"trace -> {exp.tracer.path} "
+              f"(overlap={ts['overlap_ratio']} compiles={ts['compiles']} "
+              f"recompiles={ts['recompiles']})")
     if args.metrics:
-        write_metrics(args.metrics, "experiment",
-                      {"name": exp.spec.name, "method": exp.spec.method,
-                       "rounds": last.round, "loss": last.loss,
-                       "params_m": last.params_m,
-                       "total_comm_gb": total_comm})
+        write_metrics(args.metrics, "experiment", metrics)
         print(f"wrote metrics to {args.metrics}")
     return exp
 

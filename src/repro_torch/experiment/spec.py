@@ -8,12 +8,11 @@ JSON-round-trippable.  Its fields and defaults are the reference's, so
 a ``spec.json`` written by either package loads in the other and is
 written back key for key.
 
-``FaultSpec`` and ``CommSpec`` are defined where the reference defines
-them (:mod:`repro_torch.fl.faults`, :mod:`repro_torch.fl.compress`) and
-re-exported here; ``ObsSpec`` is the port's copy of the reference's
-(``repro/obs/spec.py``), whose module belongs to the obs layer.  The
-trainers refuse what they do not implement yet: enabled ``obs``
-(ROADMAP A.11), a ``mesh`` (A.13).
+``FaultSpec``, ``CommSpec`` and ``ObsSpec`` are defined where the
+reference defines them (:mod:`repro_torch.fl.faults`,
+:mod:`repro_torch.fl.compress`, :mod:`repro_torch.obs.spec`) and
+re-exported here.  The trainers refuse what they do not implement yet:
+a ``mesh`` (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -22,51 +21,13 @@ import json
 from typing import Optional
 
 from repro_torch.configs.base import FLConfig, fl_from_dict
-from repro_torch.experiment.resolve import resolve_obs
 from repro_torch.fl.compress import CommSpec
 from repro_torch.fl.faults import FaultSpec
+from repro_torch.obs.spec import ObsSpec
 
 TOPOLOGIES = ("hierarchical", "flat")
 __all__ = ["CommSpec", "DataSpec", "ExperimentSpec", "FaultSpec", "ObsSpec",
            "TOPOLOGIES"]
-
-
-class _Spec:
-    """``replace``/``to_dict``/``from_dict`` (unknown keys dropped) of a
-    frozen dataclass."""
-
-    def replace(self, **kw):
-        return dataclasses.replace(self, **kw)
-
-    def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
-
-    @classmethod
-    def from_dict(cls, d: dict):
-        known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in known})
-
-
-@dataclasses.dataclass(frozen=True)
-class ObsSpec(_Spec):
-    """Tracing and metrics (``repro/obs/spec.py:ObsSpec``).  ``enabled``
-    None defers to ``$FEDPHD_OBS``."""
-    enabled: Optional[bool] = None
-    trace: str = ""
-    flush_every: int = 1
-    compile_tracking: bool = True
-
-    def __post_init__(self):
-        if self.flush_every < 1:
-            raise ValueError(f"flush_every must be >= 1, got "
-                             f"{self.flush_every}")
-
-    @property
-    def resolved_enabled(self) -> bool:
-        """``enabled`` if explicit, else ``$FEDPHD_OBS`` > off."""
-        if self.enabled is not None:
-            return bool(self.enabled)
-        return resolve_obs()
 
 
 @dataclasses.dataclass(frozen=True)

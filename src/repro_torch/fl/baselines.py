@@ -40,7 +40,12 @@ rows, only completed clients update their client-local state, and
 later.  SCAFFOLD's variates and late deltas ship in fp32; MOON's and
 FedDiffuse's client-local state is never quantized.
 
-Not ported yet, and refused: tracing (ROADMAP A.11), meshes (A.13).
+Rounds split into ``_start_round`` and ``_finish_round`` and ``run()``
+double-buffers them, as :class:`repro_torch.core.hfl.FedPhD` does: the
+vectorized round's (C,) losses stay on the device until the round is
+finished, and ``tracer=`` records the same phase spans.
+
+Not ported yet, and refused: meshes (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -57,9 +62,9 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.aggregation import (aggregate_fedavg, fedavg_weights,
                                           uniform_weights, weighted_average,
                                           weighted_average_stacked)
-from repro_torch.core.hfl import prng_key
+from repro_torch.core.hfl import prng_key, run_pipelined, sync_losses
 from repro_torch.data.pipeline import stack_round
-from repro_torch.device import resolve_device
+from repro_torch.device import host_to_device, resolve_device
 from repro_torch.experiment.resolve import resolve_engine, resolve_precision
 from repro_torch.fl import engine as eng
 from repro_torch.fl.client import (Client, make_local_step, run_local,
@@ -72,6 +77,8 @@ from repro_torch.fl.faults import (FaultSpec, edge_weight_rows, late_delta,
                                    merge_late)
 from repro_torch.fl.record import RoundRecord, RunResult, evals_of
 from repro_torch.models import model
+from repro_torch.obs.compile_tracker import tracker_for
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim import adam_init, ema_init, ema_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -129,7 +136,7 @@ def _rows_or_default(rows, default_tree, seen_rows):
         return rows
 
     def fill(r, g):
-        r[torch.as_tensor(unseen, device=r.device)] = g.to(r.device)
+        r[host_to_device(unseen, r.device)] = g.to(r.device)
         return r
     return tree_map(fill, rows, default_tree)
 
@@ -146,8 +153,9 @@ class FlatTrainer:
     Adam every round).  state_store: where the (N, ...) method state
     lives, "device", "host" or "auto".  eval_fn/eval_every, fault and
     quant: as FedPhD's.  aggregation: "fedavg", or "staleness" for
-    FedAvg.  mesh and tracer: the reference's; anything but None raises
-    NotImplementedError (ROADMAP A.13, A.11).
+    FedAvg.  tracer: a :class:`repro_torch.obs.Tracer`, as FedPhD's.
+    mesh: the reference's; anything but None raises NotImplementedError
+    (ROADMAP A.13).
     """
 
     def __init__(self, method: str, cfg: ModelConfig, fl: FLConfig,
@@ -173,9 +181,9 @@ class FlatTrainer:
             raise NotImplementedError("FlatTrainer(mesh=...): the "
                                       "mesh-sharded client axis is "
                                       "ROADMAP A.13")
-        if tracer is not None:
-            raise NotImplementedError("FlatTrainer(tracer=...): tracing is "
-                                      "ROADMAP A.11")
+        # NULL_TRACER (the default): every span and event is a no-op
+        self._obs = NULL_TRACER
+        self._obs_compile = None
         self.method = method
         # "staleness": FedAvg over the on-time reporters and the late
         # deltas merged a round later; with no stragglers, FedAvg
@@ -207,6 +215,7 @@ class FlatTrainer:
         # vectorized round's local training, as FedPhD keeps them
         self.step_seconds: List[float] = []
         self.round_seconds: List[float] = []
+        self._t_local: Optional[float] = None
 
         n = len(clients)
         self._store = eng.resolve_store(
@@ -237,6 +246,17 @@ class FlatTrainer:
         self._round_engine = eng.make_round_engine(
             cfg, fl, method=method, lr=lr, stored=self._stored_copies(),
             quant=quant)
+        if tracer is not None:
+            self.bind_tracer(tracer)
+
+    # -- observability -------------------------------------------------------
+    def bind_tracer(self, tracer) -> None:
+        """Attach an obs tracer (:mod:`repro_torch.obs`): later rounds emit
+        phase spans, fault events and host-cache counters through it.
+        None (or the NULL_TRACER) keeps the no-op path.  The flat model
+        never changes shape, so each cache is watched once."""
+        self._obs = tracer if tracer is not None else NULL_TRACER
+        self._obs_compile = tracker_for(self._obs)
 
     def _stored_copies(self) -> int:
         """fp32 model copies this trainer keeps on the card across
@@ -354,29 +374,34 @@ class FlatTrainer:
         return losses
 
     # -- the vectorized engine ----------------------------------------------
-    def _round_vectorized(self, sel, faults=None):
+    def _round_vectorized(self, sel, faults=None, r=0):
         """The E = 1 engine round.  Under ``faults`` the budgets truncate
         the (C, S) valid mask by a prefix, clients that do not report get
         zero weight (the reporters' renormalized), and late deltas come
-        back through ``w_late``."""
+        back through ``w_late``.  Returns the (C,) losses on the
+        device."""
         method, fl, cfg, params = self.method, self.fl, self.cfg, self.params
-        sel_arr = np.asarray(sel)
-        sel_clients = [self.clients[int(c)] for c in sel]
-        counts = np.asarray([cl.n_samples for cl in sel_clients])
-        # the schedule's masks are in selection order
-        everyone = np.ones(len(sel), bool)
-        rep = everyone if faults is None else faults.reporting
-        comp = everyone if faults is None else faults.completed
-        batches, valid = stack_round([cl.data for cl in sel_clients],
-                                     fl.local_epochs)
-        if faults is not None:
-            valid = faults.truncate(valid, sel)
-        t0 = time.perf_counter()
-        batches = {k: torch.as_tensor(v, device=self.device)
-                   for k, v in batches.items()}
-        draws = eng.draw_round(self.gen, valid, batches["images"].shape[2:],
-                               cfg.diffusion_steps, self.device,
-                               features=method == "moon")
+        obs = self._obs
+        with obs.span("round/host_prep", round=r):
+            sel_arr = np.asarray(sel)
+            sel_clients = [self.clients[int(c)] for c in sel]
+            counts = np.asarray([cl.n_samples for cl in sel_clients])
+            # the schedule's masks are in selection order
+            everyone = np.ones(len(sel), bool)
+            rep = everyone if faults is None else faults.reporting
+            comp = everyone if faults is None else faults.completed
+            batches, valid = stack_round([cl.data for cl in sel_clients],
+                                         fl.local_epochs)
+            if faults is not None:
+                valid = faults.truncate(valid, sel)
+        self._t_local = time.perf_counter()
+        with obs.span("round/h2d", round=r):
+            batches = {k: host_to_device(v, self.device)
+                       for k, v in batches.items()}
+            draws = eng.draw_round(self.gen, valid,
+                                   batches["images"].shape[2:],
+                                   cfg.diffusion_steps, self.device,
+                                   features=method == "moon")
         # the flat round is the E = 1 case of the edge engine; the one
         # edge model is a view of the global model
         server = tree_map(lambda leaf: leaf[None], params)
@@ -402,21 +427,21 @@ class FlatTrainer:
             scale = 1.0 / (np.maximum(steps, 1) * self.lr)
             ctx = {"c_local": self._rows(self._c_local_stack, sel_arr),
                    "c_global": self.c_global,
-                   "scale": torch.as_tensor(scale, dtype=torch.float32,
-                                            device=self.device)}
-        out = self._round_engine(
-            server, np.zeros(len(sel), np.int64), batches, valid, draws,
-            w_row, ctx=ctx,
-            opt_states=self._rows(self._opt_stack, sel_arr)
-            if self.persistent_opt else None, w_late=w_late,
-            err=self._rows(self._err_stack, sel_arr)
-            if self.quant != "none" else None)
+                   "scale": host_to_device(scale.astype(np.float32),
+                                           self.device)}
+        with obs.span("round/dispatch", round=r):
+            out = self._round_engine(
+                server, np.zeros(len(sel), np.int64), batches, valid, draws,
+                w_row, ctx=ctx,
+                opt_states=self._rows(self._opt_stack, sel_arr)
+                if self.persistent_opt else None, w_late=w_late,
+                err=self._rows(self._err_stack, sel_arr)
+                if self.quant != "none" else None)
         # under faults SCAFFOLD's mean change is taken over the completed
         # clients, which needs their old rows
         c_local = ctx["c_local"] if method == "scaffold" \
             and faults is not None else None
         del ctx
-        self.round_seconds.append(time.perf_counter() - t0)
         # a zero weight row makes the aggregate zeros: keep the model
         agg = tree_map(lambda leaf: leaf[0], out["agg"]) if rep.any() \
             else (shared_g if method == "feddiffuse" else params)
@@ -458,7 +483,8 @@ class FlatTrainer:
             frac = int(comp.sum()) / len(self.clients)
             self.c_global = tree_map(lambda c, d: c + frac * d,
                                      self.c_global, mean_dc)
-        return list(out["losses"])
+        # no sync: the losses stay on the device until _finish_round
+        return out["losses"]
 
     # -- one round -----------------------------------------------------------
     def late_buffers(self) -> Dict[int, dict]:
@@ -487,8 +513,9 @@ class FlatTrainer:
         return self._finish_round(self._start_round(r))
 
     def _start_round(self, r: int) -> Dict:
-        """Sampling, local training, aggregation and the method's state;
-        returns what ``_finish_round`` records."""
+        """Sampling, local training, aggregation and the method's state:
+        everything but the wait for the device's losses.  Returns the
+        pending round ``_finish_round`` records."""
         fl = self.fl
         C = max(1, round(fl.participation * len(self.clients)))
         faults = None
@@ -502,13 +529,18 @@ class FlatTrainer:
                      * self.clients[int(c)].data.steps_per_epoch for c in sel]
             faults = self._faults.draw_round(
                 sel, steps, self.aggregation == "staleness")
+            if self._obs.enabled:
+                self._obs.event("fault/draw", round=r, **faults.summary())
         else:
             sel = self.np_rng.choice(len(self.clients), size=C,
                                      replace=False)
+        self._t_local = None
         if self._use_vectorized([self.clients[int(c)] for c in sel]):
-            losses = self._round_vectorized(sel, faults)
+            losses = self._round_vectorized(sel, faults, r)
         else:
-            losses = self._round_sequential(sel, faults)
+            # the sequential loop syncs every step: one dispatch span
+            with self._obs.span("round/dispatch", round=r):
+                losses = self._round_sequential(sel, faults)
         up_q, up_f, down = self._wire_bytes()
         if faults is None:
             up_bytes = len(sel) * self.comm.edge_cloud(up_q)
@@ -523,7 +555,9 @@ class FlatTrainer:
                 + n_late * self.comm.edge_cloud(up_f)
             down_bytes = int(faults.arrived.sum()) \
                 * self.comm.edge_cloud(down)
-        return {"round": r, "losses": losses, "sel_ids": sel,
+        # what the record and the eval hook read, taken now
+        return {"round": r, "losses": losses, "t_local": self._t_local,
+                "sel_ids": sel,
                 "up_bytes": up_bytes, "down_bytes": down_bytes,
                 "params_m": sum(x.numel()
                                 for x in tree_leaves(self.params)) / 1e6,
@@ -533,9 +567,11 @@ class FlatTrainer:
                 "availability": faults.availability() if faults else None}
 
     def _finish_round(self, pend: Dict) -> RoundRecord:
+        """Sync the pending round's losses and append its record."""
+        r = pend["round"]
         # the round's loss averages the clients that ran a step
-        losses = [x for x, ran in zip(pend["losses"], pend["loss_mask"])
-                  if ran]
+        losses = [x for x, ran in zip(sync_losses(self, pend),
+                                      pend["loss_mask"]) if ran]
         rec = RoundRecord(
             round=pend["round"],
             loss=float(np.mean(losses)) if losses else 0.0,
@@ -548,20 +584,24 @@ class FlatTrainer:
         # appended before the eval hook: the round ran and the streams
         # advanced, so a raising eval_fn loses the eval, not the round
         self.history.append(rec)
-        r = pend["round"]
+        if self._obs_compile is not None:
+            self._obs_compile.check(round=r)
         if self.eval_fn and self.eval_every and r % self.eval_every == 0:
             rec.eval = self.eval_fn(pend["params"], pend["cfg"], r)
+            if self._obs_compile is not None:
+                # the eval samples at its own shapes, off the watched path
+                self._obs_compile.rebase()
         return rec
 
     def run(self, rounds: Optional[int] = None, *,
             eval_every: Optional[int] = None) -> RunResult:
         """Run rounds ``len(history)+1 .. rounds`` (default
-        ``fl.rounds``; after ``restore`` the run continues)."""
+        ``fl.rounds``; after ``restore`` the run continues), double-
+        buffered (:func:`repro_torch.core.hfl.run_pipelined`)."""
         rounds = rounds or self.fl.rounds
         if eval_every is not None:
             self.eval_every = eval_every
-        for r in range(len(self.history) + 1, rounds + 1):
-            self.run_round(r)
+        run_pipelined(self, rounds)
         return RunResult(self.history, evals_of(self.history))
 
     # -- checkpoint state (the experiment API's resume contract) -------------

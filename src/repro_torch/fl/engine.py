@@ -33,8 +33,11 @@ the same cut; k = C on the CPU).  Each chunk takes one client-batched
 step a batch; the trained models land in one (C, ...) stack for the
 (E, C) aggregation.
 
-The per-client losses come back in one host sync a round.  The engine
-closes over the same loss as the sequential step
+The per-client losses stay on the device: the engine returns their
+(C,) means as a device tensor and syncs nothing, so a caller can
+dispatch the next round before this one's losses reach the host (the
+trainers' pipelined ``run()``).  The engine closes over the same loss
+as the sequential step
 (:func:`repro_torch.fl.client.make_loss_fn`), and the round's DDPM t and
 eps are drawn before it runs (:func:`draw_round`) with exactly the
 calls the sequential step makes, in its order, so both engines train on
@@ -56,6 +59,7 @@ import torch
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.core.aggregation import (combine_leaf,
                                           weighted_average_stacked)
+from repro_torch.device import host_to_device
 from repro_torch.fl.client import (make_loss_fn, scaffold_correction,
                                    scaffold_update)
 from repro_torch.fl.compress import ef_roundtrip_stacked
@@ -108,7 +112,7 @@ def tree_gather(stacked, idx):
             return leaf[np_idx]
         if np_idx.ndim == 0:
             return leaf[int(np_idx)].clone()
-        return leaf[torch.from_numpy(np_idx).to(leaf.device)]
+        return leaf[host_to_device(np_idx, leaf.device)]
     return tree_map(take, stacked)
 
 
@@ -127,7 +131,7 @@ def tree_scatter(stacked, idx, rows):
                 if isinstance(r, torch.Tensor) else np.asarray(r)
         else:
             i = int(np_idx) if np_idx.ndim == 0 \
-                else torch.from_numpy(np_idx).to(leaf.device)
+                else host_to_device(np_idx, leaf.device)
             leaf[i] = torch.as_tensor(r).to(leaf.device)
         return leaf
     return tree_map(put, stacked, rows)
@@ -188,7 +192,10 @@ def store_tree(tree, store: str, device=None):
         return tree_map(lambda x: x.detach().cpu().numpy()
                         if isinstance(x, torch.Tensor) else np.asarray(x),
                         tree)
-    return tree_map(lambda x: torch.as_tensor(x).to(device), tree)
+    # host rows go up without blocking the host (a host store's round)
+    return tree_map(lambda x: host_to_device(x, device)
+                    if isinstance(x, np.ndarray) and device is not None
+                    else torch.as_tensor(x).to(device), tree)
 
 
 def stacked_adam_init(params, n: int, *, host: bool = False) -> AdamState:
@@ -290,6 +297,9 @@ def make_train_one(loss_fn, *, method: str = "fedphd", lr: float = 2e-4):
         params, opt_state = start()
         C, S = valid.shape
         device = draws[0].device
+        # the mask on the device, uploaded once: a step with padding
+        # selects on it
+        mask = None if valid.all() else host_to_device(valid, device)
         # step s of every client, the clients' rows one after another
         at = lambda d, s: d[:, s].reshape((-1,) + tuple(d.shape[3:]))
         step_losses = []
@@ -313,7 +323,7 @@ def make_train_one(loss_fn, *, method: str = "fedphd", lr: float = 2e-4):
             new_p, new_o = adam_update(grads, opt_state, params, lr=lr,
                                        grad_clip=1.0)
             if not valid[:, s].all():
-                keep = torch.from_numpy(valid[:, s]).to(device)
+                keep = mask[:, s]
 
                 def sel(new, old):
                     k = keep.reshape((C,) + (1,) * (new.dim() - 1))
@@ -336,10 +346,19 @@ def make_train_one(loss_fn, *, method: str = "fedphd", lr: float = 2e-4):
 def client_means(per_step: torch.Tensor, valid: np.ndarray) -> np.ndarray:
     """The (C,) float64 mean of each client's real steps' losses, as the
     sequential engine takes it, from one host sync of the (C, S) device
-    losses."""
+    losses (:func:`device_means` is the same on the device)."""
     per_step = per_step.cpu().double().numpy()
     return np.asarray([np.mean(row[ok]) if ok.any() else 0.0
                        for row, ok in zip(per_step, valid)])
+
+
+def device_means(per_step: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The (C,) float64 mean of each client's real steps' losses (0 for a
+    client with none) on the device, with no sync: ``mask`` is the (C, S)
+    bool mask of real steps on ``per_step``'s device."""
+    x = torch.where(mask, per_step.double(), 0.0)
+    n = mask.sum(dim=1)
+    return torch.where(n > 0, x.sum(dim=1) / n.clamp(min=1), 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -570,9 +589,11 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
 
     and the result is a dict: ``"agg"``, the edge-aggregated models with a
     leading (E,) axis (fp32 sums, integer leaves rounded); ``"losses"``,
-    the (C,) host mean losses; ``"opt"``, the updated Adam rows (when
-    ``opt_states`` was given); ``"trained"``, the (C, ...) trained
-    models (MOON, FedDiffuse); ``"late"``, the (E, ...) fp32 sums
+    the (C,) float64 mean losses as a device tensor (:func:`device_means`:
+    the engine syncs nothing, the caller syncs them); ``"opt"``, the
+    updated Adam rows (when ``opt_states`` was given); ``"trained"``,
+    the (C, ...) trained models (MOON, FedDiffuse); ``"late"``, the
+    (E, ...) fp32 sums
     ``sum_c w_late[e, c] (trained_c - start_c)`` (with ``w_late``),
     added chunk after chunk; ``"err"``, the (C, ...) new residual rows
     (with ``quant``; the caller keeps only the on-time reporters'); and
@@ -608,10 +629,12 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                 stored=stored, quant=quantized, late=w_late is not None)
         else:
             k = C
-        wl = None if w_late is None else torch.as_tensor(
-            np.asarray(w_late, np.float32), device=device)
+        wl = None if w_late is None else host_to_device(
+            np.asarray(w_late, np.float32), device)
         bounds = chunk_bounds(C, k)
         edge_idx = np.asarray(edge_idx)
+        # uploaded once for the round; each chunk slices its rows
+        edge_idx_dev = host_to_device(edge_idx.astype(np.int64), device)
         local = ctx.get("local_params")
         step_losses, out, dc, late = [], {}, None, None
 
@@ -626,14 +649,14 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                 e = int(edge_idx[a])
                 pick = lambda leaf: leaf[e:e + 1]
             else:
-                idx = torch.as_tensor(edge_idx[a:b], device=device)
+                idx = edge_idx_dev[a:b]
                 pick = lambda leaf: leaf[idx]
             return {name: rows(local[name], a, b)
                     if local is not None and name in local else
                     tree_map(pick, sub) for name, sub in edge_params.items()}
 
         def start(a, b):
-            idx = torch.as_tensor(edge_idx[a:b], device=device)
+            idx = edge_idx_dev[a:b]
             params = {name: rows(local[name], a, b)
                       if local is not None and name in local else
                       tree_map(lambda leaf: leaf[idx], sub)
@@ -697,7 +720,8 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
         # the edge decodes start + deq when the uplink is quantized
         sent = out.pop("recon") if quantized else out["trained"]
         out.update(agg=weighted_average_stacked(sent, w_mat),
-                   losses=client_means(torch.cat(step_losses), valid))
+                   losses=device_means(torch.cat(step_losses),
+                                       host_to_device(valid, device)))
         del sent
         if method not in KEEPS_TRAINED:
             out.pop("trained", None)

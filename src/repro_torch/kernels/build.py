@@ -57,6 +57,7 @@ SIGNATURES = {
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 build_log: Optional[str] = None     # nvcc's output of the last build
+builds = 0                          # builds that ran nvcc in this process
 
 
 def sources():
@@ -94,7 +95,7 @@ def library_path(kernels_dir: Path = KERNELS_DIR,
 def build() -> Path:
     """Compile and link the library if it is not built yet; return its
     path.  Raises ``RuntimeError`` with the compiler's output on failure."""
-    global build_seconds, build_log
+    global build_seconds, build_log, builds
     out = library_path()
     if out.exists():
         return out
@@ -128,6 +129,7 @@ def build() -> Path:
         os.replace(tmp_so, out)           # atomic: no half-written .so
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(logs)
+    builds += 1
     return out
 
 

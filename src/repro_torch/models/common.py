@@ -124,8 +124,9 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int,
     """Timestep embedding. t: (B,) -> (B, dim) float32."""
     half = dim // 2
     # every step in float32, in the reference's order
-    log_p = torch.log(torch.tensor(max_period, dtype=torch.float32,
-                                   device=t.device))
+    # (filled on the device: a host scalar's upload would block the host)
+    log_p = torch.log(torch.full((), max_period, dtype=torch.float32,
+                                 device=t.device))
     freqs = torch.exp(-log_p * torch.arange(half, dtype=torch.float32,
                                             device=t.device) / half)
     args = t.float()[:, None] * freqs[None, :]

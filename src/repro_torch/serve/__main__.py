@@ -4,11 +4,14 @@
       --slots 8 --steps 10 --prune-ratio 0.44 --out samples/
 
 The flags are ``python -m repro.serve``'s, without ``--backend`` and
-``--trace`` and with ``--device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain versions).  Prints requests/s, p50/p99 per-step latency
-and the dense-vs-masked analytic MACs; ``--metrics`` writes them as the
-shared JSON envelope.  Exits nonzero if fewer images than requested were
-served.
+with ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
+versions).  Prints requests/s, p50/p99 per-step latency, the host
+caches' entries built (``compiles``) and the dense-vs-masked analytic
+MACs; ``--metrics`` writes them as the shared JSON envelope.
+``--trace [PATH]`` (or ``$FEDPHD_OBS=1``) records a ``serve/tick`` span
+a tick, by default to ``<ckpt>.serve.trace.jsonl``, and adds the trace's
+summary to the metrics.  Exits nonzero if fewer images than requested
+were served.
 """
 from __future__ import annotations
 
@@ -18,9 +21,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from repro_torch.experiment.cli import write_metrics
+from repro_torch.experiment.cli import (add_obs_flags, make_cli_tracer,
+                                        write_metrics)
 from repro_torch.experiment.resolve import PRECISIONS
 from repro_torch.metrics.flops import unet_macs
+from repro_torch.obs.metrics import summarize_trace
 from repro_torch.serve.artifact import load_serving_artifact, masks_for_ratio
 from repro_torch.serve.server import DiffusionServer, Request
 
@@ -47,6 +52,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="torch device (default cuda)")
     ap.add_argument("--metrics", default=None,
                     help="write the run's metrics as JSON to this path")
+    add_obs_flags(ap)
     args = ap.parse_args(argv)
 
     params, cfg, _ = load_serving_artifact(args.ckpt, device=args.device)
@@ -56,9 +62,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                 criterion=args.criterion)
     dense_macs = unet_macs(params, cfg.image_size)
     macs = unet_macs(params, cfg.image_size, masks=masks)
+    # --trace > $FEDPHD_OBS > off; by default next to the checkpoint
+    tracer = make_cli_tracer(args.trace,
+                             default_path=args.ckpt + ".serve.trace.jsonl")
     server = DiffusionServer(params, cfg, slots=args.slots,
                              num_steps=args.steps, eta=args.eta, masks=masks,
                              precision=args.precision or "",
+                             tracer=tracer if tracer.enabled else None,
                              device=args.device)
     reqs = [Request(rid=r, seed=args.seed + r) for r in range(args.requests)]
     res = server.run(reqs)
@@ -74,7 +84,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
              f"{macs / dense_macs:.2f}x)" if masks is not None else ""))
     print(f"{len(res.images)}/{args.requests} images in {res.seconds:.2f}s "
           f"({res.requests_per_s:.2f} req/s); per-step latency "
-          f"p50={p50:.1f}ms p99={p99:.1f}ms")
+          f"p50={p50:.1f}ms p99={p99:.1f}ms; "
+          f"compiles={server.compile_count()}")
     for f in res.faults:
         print(f"fault: {f}")
 
@@ -89,12 +100,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "requests_per_s": res.requests_per_s,
         "p50_step_ms": p50,
         "p99_step_ms": p99,
+        "compiles": server.compile_count(),
         "precision": server.precision,
         "device": str(server.device),
         "macs_per_forward": macs,
         "dense_macs_per_forward": dense_macs,
         "faults": res.faults,
     }
+    if tracer.enabled:
+        tracer.close()
+        ts = summarize_trace(tracer.path)
+        metrics.update(trace=tracer.path, ticks=ts["phases"].get(
+            "serve/tick", {}).get("n", 0), recompiles=ts["recompiles"])
+        print(f"trace -> {tracer.path} (ticks={metrics['ticks']} "
+              f"recompiles={ts['recompiles']})")
     if args.metrics:
         write_metrics(args.metrics, "serve", metrics)
         print(f"wrote metrics to {args.metrics}")

@@ -12,6 +12,11 @@ noise z, come from a ``torch.Generator`` on the serving device seeded by
 ``Request.seed``, so its image does not depend on the slot that serves
 it or on what ran there before.  ``Request.x_init`` injects x_T instead
 (the parity tests hand both packages the same draw).
+
+``tracer=`` (:mod:`repro_torch.obs`) records each tick as a
+``serve/tick`` span, measured after the tick's synchronize, and source
+faults as ``serve/fault`` events; it watches the host caches for growth
+after the first tick (``compile/tick/<cache>`` counters).
 """
 from __future__ import annotations
 
@@ -30,6 +35,9 @@ from repro_torch.diffusion.schedule import linear_schedule
 from repro_torch.experiment.resolve import resolve_precision
 from repro_torch.models.ops import cast_floats, compute_dtype
 from repro_torch.models.unet import apply_unet
+from repro_torch.obs.compile_tracker import (cache_size, host_caches,
+                                             tracker_for)
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclass(frozen=True)
@@ -72,12 +80,13 @@ class DiffusionServer:
     ``masks``: host numpy masks (``masks_for_ratio``) serve the pruned
     model through the gather route; ``None`` serves dense.  Under bf16
     the weights are cast once here and activations at each GEMM; the
-    denoising state and the schedule stay fp32.
+    denoising state and the schedule stay fp32.  ``tracer``: a
+    :class:`repro_torch.obs.Tracer` (or :meth:`bind_tracer` later).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
                  num_steps: int = 10, eta: float = 0.0, masks=None,
-                 precision: str = "", device="cuda"):
+                 precision: str = "", tracer=None, device="cuda"):
         self.device = resolve_device(device)
         self.precision = resolve_precision(precision or cfg.precision)
         self.cfg = cfg = cfg.replace(precision=self.precision)
@@ -101,6 +110,33 @@ class DiffusionServer:
         self._admit_t = [0.0] * slots
         self.step_latencies_s: List[float] = []
         self.request_latencies_s: Dict[int, float] = {}
+        # the host caches' entries so far: compile_count() counts from here
+        self._caches0 = self._cache_entries()
+        # obs: NULL_TRACER (the default) makes every span a no-op
+        self._obs = NULL_TRACER
+        self._obs_compile = None
+        if tracer is not None:
+            self.bind_tracer(tracer)
+
+    def bind_tracer(self, tracer) -> None:
+        """Attach (or detach, with None) an obs tracer: ticks emit
+        ``serve/tick`` spans, and the host caches are watched under
+        ``tick/<cache>``, the first tick's fill expected and any growth
+        after it not."""
+        self._obs = tracer if tracer is not None else NULL_TRACER
+        self._obs_compile = tracker_for(self._obs, prefix="tick/")
+
+    @staticmethod
+    def _cache_entries() -> int:
+        return sum(cache_size(fn) for fn in host_caches().values())
+
+    def compile_count(self) -> int:
+        """Entries the host caches (matmul plans, group-L2 tables, nvcc
+        builds) built since this server was made: what the port builds at
+        run time where the reference compiles its tick.  It stops
+        growing after the first tick, since occupancy and depth are
+        data, not shapes (on the CPU the plain versions build none)."""
+        return self._cache_entries() - self._caches0
 
     # -- request lifecycle ---------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -172,6 +208,10 @@ class DiffusionServer:
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
         self.step_latencies_s.append(now - t0)
+        self._obs.record_span("serve/tick", t0, now,
+                              active=int(active.sum()))
+        if self._obs_compile is not None:
+            self._obs_compile.check()
         completed = []
         for s, req in enumerate(self._slot_req):
             if req is not None and self.sidx[s] >= self.num_steps:
@@ -208,10 +248,13 @@ class DiffusionServer:
                     break
                 except Exception as e:          # queue fault
                     res.faults.append(f"request source fault: {e!r}")
+                    self._obs.event("serve/fault", kind="source",
+                                    detail=repr(e))
                     faults_in_a_row += 1
                     if faults_in_a_row >= fault_limit:
                         res.faults.append("fault limit reached; treating "
                                           "source as exhausted")
+                        self._obs.event("serve/fault", kind="fault_limit")
                         exhausted = True
                     continue
                 faults_in_a_row = 0
@@ -225,6 +268,7 @@ class DiffusionServer:
                 if idle >= idle_limit:
                     res.faults.append("idle limit reached with empty "
                                       "source; stopping")
+                    self._obs.event("serve/fault", kind="idle_limit")
                     break
                 continue
             idle = 0
@@ -233,4 +277,5 @@ class DiffusionServer:
         res.seconds = time.perf_counter() - t_start
         res.step_latencies_s = self.step_latencies_s[n0_steps:]
         res.request_latencies_s = dict(self.request_latencies_s)
+        self._obs.flush()
         return res

@@ -53,6 +53,7 @@ from repro_torch.experiment.run import run_spec
 from repro_torch.experiment.spec import DataSpec, ExperimentSpec, FaultSpec
 from repro_torch.fl import baselines, engine
 from repro_torch.fl import client as tclient
+from repro_torch.obs.trace import Tracer
 from repro_torch.optim import adam_init, ema_init, ema_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -492,12 +493,12 @@ def test_draw_round_moon_matches_sequential_calls():
 # (e) the registry, the refusals and resume
 # ---------------------------------------------------------------------------
 
-def test_registry_and_refusals():
+def test_registry_and_refusals(tmp_path):
     """The five flat methods and ``fedavg-stale`` are registered as
     "flat", ``fedphd-stale`` as "hierarchical"; faults, the quantized
-    uplink and the staleness aggregation (FedAvg only) are accepted;
-    every unported FlatTrainer option raises naming its item; without a
-    card the default device raises."""
+    uplink, the staleness aggregation (FedAvg only) and a tracer are
+    accepted; every unported FlatTrainer option raises naming its item;
+    without a card the default device raises."""
     assert set(METHODS) <= set(registered_methods())
     assert all(method_entry(m).topology == "flat" for m in METHODS)
     assert method_entry("fedavg-stale").topology == "flat"
@@ -507,8 +508,12 @@ def test_registry_and_refusals():
     for kw in (dict(fault=FaultSpec(dropout=0.5)), dict(quant="int8"),
                dict(aggregation="staleness")):
         baselines.FlatTrainer("fedavg", CFG, fl, clients, device="cpu", **kw)
-    for kw, item in ((dict(mesh={"data": 2}), "A.13"),
-                     (dict(tracer=object()), "A.11")):
+    tracer = Tracer(str(tmp_path / "t.jsonl"))
+    tr = baselines.FlatTrainer("fedavg", CFG, fl, clients, device="cpu",
+                               tracer=tracer)
+    assert tr._obs is tracer and tr._obs_compile is not None
+    tracer.close()
+    for kw, item in ((dict(mesh={"data": 2}), "A.13"),):
         with pytest.raises(NotImplementedError, match=item):
             baselines.FlatTrainer("fedavg", CFG, fl, clients, device="cpu",
                                   **kw)

@@ -587,6 +587,8 @@ def round_vs_jax():
                                             lr=LR, prune_masks=pm)
             got[label] = teng(_stacked(edges), edge_idx, tb, valid,
                               (tb["t"].long(), tb["eps"]), w_mat)
+            # the engine returns the (C,) losses on the device, unsynced
+            got[label]["losses"] = got[label]["losses"].numpy()
     return want, got
 
 

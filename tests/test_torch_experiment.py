@@ -71,6 +71,7 @@ from repro_torch.experiment.spec import (DataSpec, ExperimentSpec, FaultSpec,
                                          ObsSpec)
 from repro_torch.fl import engine
 from repro_torch.metrics import fid
+from repro_torch.obs.trace import Tracer
 from repro_torch.serve.artifact import load_serving_artifact
 from repro_torch.tree import tree_leaves
 
@@ -163,9 +164,9 @@ def test_spec_and_presets_match_reference():
 
 def test_registry_and_refusals(monkeypatch, tmp_path):
     """The reference's methods are all registered (fedphd, fedphd-os, the
-    five flat baselines and the two staleness variants); faults and the
-    quantized uplink are accepted, and every unported feature raises,
-    naming the ROADMAP item."""
+    five flat baselines and the two staleness variants); faults, the
+    quantized uplink and obs tracing are accepted, and every unported
+    feature raises, naming the ROADMAP item."""
     assert registered_methods() == ["fedavg", "fedavg-stale", "feddiffuse",
                                     "fedphd", "fedphd-os", "fedphd-stale",
                                     "fedprox", "moon", "scaffold"]
@@ -183,17 +184,27 @@ def test_registry_and_refusals(monkeypatch, tmp_path):
     # a disabled fault spec is the fault-free path
     assert FedPhD(SMOKE_UNET, SPEC.fl, clients, device="cpu",
                   fault=FaultSpec())._faults is None
-    with pytest.raises(NotImplementedError, match="A.11"):
-        make_trainer(SPEC.replace(obs=ObsSpec(enabled=True)), SMOKE_UNET,
-                     clients, device="cpu")
+    # obs tracing: an enabled ObsSpec binds the tracer, and so does
+    # $FEDPHD_OBS through the experiment API
+    tracer = Tracer(str(tmp_path / "t.jsonl"))
+    tr = make_trainer(SPEC.replace(obs=ObsSpec(enabled=True)), SMOKE_UNET,
+                      clients, tracer=tracer, device="cpu")
+    assert tr._obs is tracer and tr._obs_compile is not None
+    tracer.close()
     monkeypatch.setenv("FEDPHD_OBS", "1")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        make_trainer(SPEC, SMOKE_UNET, clients, device="cpu")
+    exp = Experiment(SPEC, clients=clients, device="cpu",
+                     trace_path=str(tmp_path / "env.jsonl"))
+    assert exp.tracer.enabled and exp.trainer._obs is exp.tracer
+    exp.tracer.close()
     monkeypatch.delenv("FEDPHD_OBS")
     for argv, item in ((["--sweep", "grid.json"], "A.12"),
-                       (["--k8s-fake"], "A.12"), (["--trace"], "A.11")):
+                       (["--k8s-fake"], "A.12")):
         with pytest.raises(NotImplementedError, match=item):
             runner.main(argv + ["--out", str(tmp_path), "--device", "cpu"])
+    # --trace is parsed and turns on the spec's obs (the traced run
+    # itself is tests/test_torch_obs.py's)
+    args = runner.build_parser().parse_args(["--trace"])
+    assert runner._apply_overrides(SPEC, args).obs == ObsSpec(enabled=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Experiment(SPEC)
