@@ -141,9 +141,19 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             round's syncs within OBS_SYNCS_ALLOWED; 16 requests served
             dense with ``--trace``: a ``serve/tick`` span a tick, the host
             caches grown in the first tick only;
+7g. sweep   (after quant) the ``train`` cell's spec as a 4-run grid
+            (``method`` fedphd | fedavg x ``comm.quant`` none | int8,
+            SWEEP_ROUNDS rounds, R_s past them, the eval hook at the
+            last) through every sweep executor: the runner's ``--sweep``
+            killed by ``--max-runs`` and resumed, the same unbroken, the
+            k8s executor on a ``FakeCluster`` preempting one run, and
+            one spawned process worker on two points; the histories
+            bitwise equal across them, the report's groups, the int8
+            uplink against the none runs', exact launches, the worker's
+            start-up and its nvcc builds (0);
 8. kernels  every kernel against its plain PyTorch version on the card at
-            each shape the serving, training, LM, experiment and
-            baselines runs launched it with
+            each shape the serving, training, LM, experiment,
+            baselines, faults, quant and sweep runs launched it with
             (the matmul's backward-dx launches as the backward runs them,
             reading w.T in place), plus masked cases (ratios 0 / 0.44 /
             0.9, a fully masked N-block, a ragged unaligned 1000 x 999 x
@@ -198,8 +208,9 @@ on the card, in chunks of ``client_chunk``'s k with the uplink counted.
 Every kernel's counters (``.launches``, the per-shape ``.shapes``, the
 matmul's ``.dx_shapes`` and group-L2's ``.bwd_launches`` and
 ``.bwd_shapes``) are set to 0 just before each serving run, each
-training run, each LM run, each experiment run, each baselines run
-and each faults and quant run, and read just after it.  Group-L2
+training run, each LM run, each experiment run, each baselines run,
+each faults and quant run and each in-process sweep (the killed and
+resumed pair counted as one), and read just after it.  Group-L2
 launches once per Omega evaluation and once per pruning score: the
 sequential training run must launch it once a sparse step plus once at R_s, the
 vectorized one once a batched sparse step plus once at R_s, the 0.44
@@ -217,7 +228,8 @@ and ``vs_library`` ms / library_ms.  ``paths`` gives the same for every
 run, among them ``train_vectorized`` (the first vectorized training
 run), ``train_bf16``, ``experiment`` (the unbroken paper run),
 ``baselines``, ``faults`` and ``quant`` (every run of phases 7c, 7d and
-7e), the matmul's launches on those and ``train`` also
+7e) and ``sweep`` (phase 7g's unbroken sweep, its eval included), the
+matmul's launches on those and ``train`` also
 split into forward and dx; group-L2's entry
 is its forward launches, and ``backward`` (and
 ``backward_train_vectorized``, ``backward_experiment``) gives its
@@ -228,6 +240,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -260,7 +273,7 @@ LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency")
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
 BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "experiment", "baselines",
-                                "faults", "quant")
+                                "faults", "quant", "sweep")
 PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + BACKWARD_PATHS[2:]
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
               "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
@@ -357,6 +370,19 @@ OBS_PROBES = {"default": {},
 # synchronizing calls a steady-state vectorized _start_round may make
 # (file:line; ROADMAP B.5 lists them)
 OBS_SYNCS_ALLOWED = ()
+# phase 7g (sweep): the train cell's spec as a grid over these axes, 2
+# rounds with R_s past them (Omega in both, nothing pruned) and the eval
+# hook at the last; the CLI's sequential sweep killed after
+# SWEEP_KILL_AFTER runs and resumed, a FakeCluster run preempted after
+# SWEEP_PREEMPT_AFTER rounds, and the process executor on the grid less
+# SWEEP_PROCESS_EXCLUDE (two points)
+SWEEP_AXES = {"method": ["fedphd", "fedavg"], "comm.quant": ["none", "int8"]}
+SWEEP_ROUNDS = 2
+SWEEP_KILL_AFTER = 2
+SWEEP_PREEMPT_AFTER = 1
+SWEEP_PROCESS_EXCLUDE = ({"method": "fedphd", "comm.quant": "none"},
+                         {"method": "fedavg", "comm.quant": "int8"})
+EVAL_STEPS = 10                  # runner._default_eval's DDIM steps
 TPU_KERNELS = {
     "block_masked_matmul":
         "src/repro/kernels/block_masked_matmul/block_masked_matmul.py:43",
@@ -2236,14 +2262,14 @@ def fl_run(spec, dev, counters, zero_counters, rounds=None):
                 peak=torch.cuda.max_memory_allocated(dev))
 
 
-def want_launches(run, engine, hierarchical):
+def want_launches(run, engine, hierarchical, sparse_rounds=2):
     """The launches a run must make, from its availability records: a
     client step is 101 forward and 99 dx matmul launches and 6 attention
     launches; the sequential engine runs each client's budget, the
     vectorized one max(budget) batched steps a round (the steps no
-    client reaches are not run); FedPhD's sparse rounds (r < R_s = 2)
-    add one group-L2 launch and one backward a step, the prune one
-    group-L2 launch."""
+    client reaches are not run); FedPhD's sparse rounds (r < R_s,
+    ``sparse_rounds``) add one group-L2 launch and one backward a step,
+    the prune one group-L2 launch."""
     fwd, dx = U_NET_GEMMS
     steps = sparse = 0
     for h in run["hist"]:
@@ -2252,7 +2278,7 @@ def want_launches(run, engine, hierarchical):
         n = sum(budgets) if engine == "sequential" else max(budgets,
                                                             default=0)
         steps += n
-        sparse += n if hierarchical and h.round < 2 else 0
+        sparse += n if hierarchical and h.round < sparse_rounds else 0
     prunes = sum(h.pruned for h in run["hist"])
     return {"block_masked_matmul": steps * (fwd + dx),
             "flash_attention": steps * U_NET_ATTENTION,
@@ -2735,6 +2761,321 @@ def quant_memory_phase(dev):
     require(peak < total, f"quant_memory: peak {peak} of {total}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7g: sweeps, reports and cluster execution
+# ---------------------------------------------------------------------------
+
+def sweep_grid():
+    """The ``sweep`` cell: the ``train`` cell's spec (:func:`fl_spec`:
+    full-width CIFAR10_UNET in fp32, 4 clients of 2 classes, 2 edges,
+    batch 32, the vectorized engine) for SWEEP_ROUNDS rounds with R_s
+    past them and the eval hook at the last, over SWEEP_AXES."""
+    from repro_torch.experiment.sweep import SweepSpec
+    base = fl_spec("fedphd", "vectorized", SWEEP_ROUNDS)
+    base = base.replace(name="sweep", eval_every=SWEEP_ROUNDS,
+                        fl=dataclasses.replace(
+                            base.fl, sparse_rounds=SWEEP_ROUNDS + 1))
+    return SweepSpec(name="sweep", base=base, axes=SWEEP_AXES,
+                     group_by=tuple(SWEEP_AXES))
+
+
+def sweep_worker_init(record_dir):
+    """The process executor's initializer, run first in each spawned
+    worker (bound to ``record_dir`` by ``functools.partial``): registers
+    the cell's dataset, which a spawned worker does not see.  Then, on
+    its own calls and before the run, it times the worker's CUDA context
+    and the kernel library's load, and writes them to
+    ``record_dir/worker-<pid>.json`` with when it started and the
+    library's nvcc builds in the worker (0: it loads the parent's build;
+    the run finds the library loaded)."""
+    t_init = time.time()
+    register_baseline_data()
+    import torch
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    build.library()
+    t2 = time.perf_counter()
+    with open(os.path.join(record_dir, f"worker-{os.getpid()}.json"),
+              "w") as f:
+        json.dump({"pid": os.getpid(), "t_init": t_init,
+                   "cuda_context_s": t1 - t0, "library_load_s": t2 - t1,
+                   "nvcc_builds": build.builds}, f)
+
+
+def sweep_want(man, sparse_rounds, evals=True):
+    """The launches of every run of a sweep manifest, summed, as
+    :func:`want_launches` reckons them from each run's history and its
+    clients (the vectorized engine), plus the eval hook's forwards
+    (EVAL_STEPS U-Net forwards an eval) where ``evals``."""
+    from types import SimpleNamespace
+    from repro_torch.experiment.data import make_clients
+    from repro_torch.experiment.registry import method_entry
+    from repro_torch.experiment.spec import ExperimentSpec
+    from repro_torch.fl.record import RoundRecord
+
+    total = {}
+    for entry in man["runs"].values():
+        spec = ExperimentSpec.from_dict(entry["spec"])
+        run = {"hist": [RoundRecord.from_dict(h) for h in entry["history"]],
+               "tr": SimpleNamespace(clients=make_clients(spec)[0])}
+        want = want_launches(
+            run, "vectorized",
+            method_entry(spec.method).topology == "hierarchical",
+            sparse_rounds)
+        n_evals = sum(h.eval is not None for h in run["hist"]) if evals \
+            else 0
+        want["block_masked_matmul"] += n_evals * EVAL_STEPS * U_NET_GEMMS[0]
+        want["flash_attention"] += n_evals * EVAL_STEPS * U_NET_ATTENTION
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def sweep_phase(dev, counters, zero_counters, out_dir):
+    """Sweeps on the card (``sweep``): :func:`sweep_grid`'s 4 runs
+    through each executor, in temporary sweep directories (a checkpoint
+    is ~0.4 GB; the manifests and reports are copied to ``out_dir``),
+    each attempt checkpointing once, at its end (``save_every`` 0; the
+    preempted attempt's end is round SWEEP_PREEMPT_AFTER):
+
+    1. the runner's CLI (``--sweep --device cuda``, sequential, the eval
+       hook live) killed after SWEEP_KILL_AFTER runs by ``--max-runs``,
+       then the same command again, which resumes;
+    2. the same CLI command unbroken in a fresh ``--out``;
+    3. the k8s executor on a ``FakeCluster`` that preempts the first run
+       after SWEEP_PREEMPT_AFTER rounds, with one retry;
+    4. the process executor, one spawned worker, on two grid points.
+
+    Checks: the resumed sweep's histories equal the unbroken one's
+    bitwise (every key, evals included) and no run ran twice; the k8s
+    and process histories equal the unbroken one's bitwise but for the
+    eval (neither executor takes the hook), the preempted run retried
+    once, and the k8s launches equal the grid's once (its retry trained
+    from its checkpoint); the unbroken sweep's ``report.json`` has 4
+    groups of n = 1 with the loss, bytes, params, wall and
+    ``eval.is_proxy``; each int8 run's uplink is its none run's times
+    (n + 4 L) / 4 n per upload, its downloads identical; the launches
+    of sweeps 1 and 2 (counters set to 0 before each, read after) equal
+    :func:`sweep_want`'s; the process worker built no kernel (nvcc 0).
+    Reported: each run's wall and images/s, each sweep's wall beside the
+    sum of its runs' (the executor's own overhead), the worker's
+    start-up (spawn and imports to its initializer, the CUDA context,
+    the library load).  Returns the unbroken sweep's tally."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.experiment import runner
+    from repro_torch.experiment.cluster import FakeCluster, K8sExecutor
+    from repro_torch.experiment.data import make_clients
+    from repro_torch.experiment.spec import ExperimentSpec
+    from repro_torch.experiment.sweep import (ProcessExecutor,
+                                              manifest_status, run_sweep)
+    from repro_torch.fl.comm import CommModel
+    from repro_torch.models.unet import init_unet
+    from repro_torch.tree import tree_leaves
+
+    register_baseline_data()
+    grid = sweep_grid()
+    ids = [r.run_id for r in grid.expand()]
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    leaves = tree_leaves(init_unet(get_config(grid.base.model), gen,
+                                   device=dev))
+    n, L = sum(p.numel() for p in leaves), len(leaves)
+    del leaves
+
+    def strip(man):          # the histories without the evals
+        return {rid: [{k: v for k, v in h.items() if k != "eval"}
+                      for h in e["history"]]
+                for rid, e in man["runs"].items()}
+
+    def launches():
+        return dict({k: fn.launches for k, fn in counters.items()},
+                    group_l2_norms_bwd=counters["group_l2_norms"]
+                    .bwd_launches)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid.json")
+        with open(path, "w") as f:
+            f.write(grid.to_json())
+        dirs = {k: os.path.join(tmp, k)
+                for k in ("resumed", "unbroken", "k8s", "process")}
+        cli = ["--sweep", path, "--device", dev.type, "--save-every", "0"]
+        walls, counts, tallies, mans = {}, {}, {}, {}
+        # 1-2: the CLI, killed and resumed; then unbroken
+        for name, argvs in (("resumed", (["--max-runs",
+                                          str(SWEEP_KILL_AFTER)], [])),
+                            ("unbroken", ([],))):
+            torch.cuda.synchronize()
+            zero_counters()
+            t0 = time.perf_counter()
+            parts = [runner.main(cli + ["--out", dirs[name], *a])
+                     for a in argvs]
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            counts[name] = launches()
+            tallies[name] = tally_of(counters)
+            mans[name] = parts[-1].manifest
+            if name == "resumed":
+                killed = manifest_status(parts[0].manifest)
+        resumed, whole = mans["resumed"], mans["unbroken"]
+        with open(os.path.join(dirs["unbroken"], "report.json")) as f:
+            report = json.load(f)
+        # 3: k8s on the fake cluster, the first run preempted once
+        fake = FakeCluster(preempt_once={ids[0]: SWEEP_PREEMPT_AFTER})
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        k8s = run_sweep(grid, dirs["k8s"], executor=K8sExecutor(
+            cluster=fake, poll_s=0.0), max_retries=1, backoff_s=0.0,
+            save_every=0, raise_on_error=True, device=dev.type).manifest
+        torch.cuda.synchronize()
+        walls["k8s"] = time.perf_counter() - t0
+        counts["k8s"] = launches()
+        # 4: one spawned worker a run; the parent's cache returned first
+        torch.cuda.empty_cache()
+        parent_reserved = torch.cuda.memory_reserved(dev)
+        records = os.path.join(tmp, "workers")
+        os.makedirs(records)
+        t0 = time.perf_counter()
+        proc = run_sweep(grid.replace(exclude=SWEEP_PROCESS_EXCLUDE),
+                         dirs["process"], executor=ProcessExecutor(
+                             max_workers=1, initializer=functools.partial(
+                                 sweep_worker_init, records)),
+                         save_every=0, raise_on_error=True,
+                         device=dev.type).manifest
+        walls["process"] = time.perf_counter() - t0
+        recs = []
+        for fname in os.listdir(records):
+            with open(os.path.join(records, fname)) as f:
+                recs.append(json.load(f))
+        # one worker at a time: a run's worker is the one whose
+        # initializer ran between its launch (its last sweep/queue
+        # span's end) and its attempt's end
+        workers = {}
+        for rid, e in proc["runs"].items():
+            launched = max(s["t1"] for s in e["trace"]
+                           if s["name"] == "sweep/queue")
+            ended = max(s["t1"] for s in e["trace"]
+                        if s["name"] == "sweep/attempt")
+            [rec] = [r for r in recs if launched <= r["t_init"] <= ended]
+            rec["spawn_import_s"] = rec["t_init"] - launched
+            rec["startup_s"] = rec["spawn_import_s"] \
+                + rec["cuda_context_s"] + rec["library_load_s"]
+            workers[rid] = rec
+        for name, d in dirs.items():
+            os.makedirs(os.path.join(out_dir, name), exist_ok=True)
+            for fname in ("sweep.json", "report.json", "report.md"):
+                if os.path.exists(os.path.join(d, fname)):
+                    shutil.copy(os.path.join(d, fname),
+                                os.path.join(out_dir, name, fname))
+
+    # each run's images and seconds (the unbroken sweep)
+    for rid in ids:
+        e = whole["runs"][rid]
+        clients = make_clients(ExperimentSpec.from_dict(e["spec"]))[0]
+        images = TRAIN_BATCH * sum(clients[c].data.steps_per_epoch
+                                   for h in e["history"]
+                                   for c in h["selected"])
+        emit("sweep_run", run_id=rid, wall_s=e["wall_s"], images=images,
+             images_per_s=images / e["wall_s"],
+             loss=[h["loss"] for h in e["history"]],
+             comm_gb=[h["comm_gb"] for h in e["history"]],
+             is_proxy=e["history"][-1]["eval"]
+             and e["history"][-1]["eval"].get("is_proxy"))
+
+    # the int8 uplink against the none run's, upload for upload
+    comm = CommModel()
+    ratios, bytes_ok = {}, True
+    for method in SWEEP_AXES["method"]:
+        cost = comm.client_edge if method == "fedphd" else comm.edge_cloud
+        full, quant = cost(4 * n), cost(n + 4 * L)
+        hn = whole["runs"][f"comm.quant=none,method={method}"]["history"]
+        hq = whole["runs"][f"comm.quant=int8,method={method}"]["history"]
+        for a, b in zip(hn, hq, strict=True):
+            k = len(b["selected"])
+            want_up = a["comm_up_gb"] + k * (quant - full) / 1e9
+            bytes_ok &= a["selected"] == b["selected"] \
+                and a["comm_down_gb"] == b["comm_down_gb"] \
+                and abs(b["comm_up_gb"] - want_up) <= 1e-9 * want_up
+            other = a["comm_up_gb"] - k * full / 1e9
+            ratios.setdefault(method, []).append(
+                (b["comm_up_gb"] - other) / (a["comm_up_gb"] - other))
+
+    want = sweep_want(whole, SWEEP_ROUNDS + 1)
+    want_k8s = sweep_want(whole, SWEEP_ROUNDS + 1, evals=False)
+    pre = k8s["runs"][ids[0]]
+    outcomes = [s["attrs"]["outcome"] for s in pre["trace"]
+                if s["name"] == "sweep/attempt"]
+    groups = report["groups"]
+    hist = lambda m: {r: e["history"] for r, e in m["runs"].items()}
+    metric_keys = ("loss", "comm_gb", "params_m", "wall_s", "eval.is_proxy")
+    run_walls = {name: sum(e["wall_s"] for e in m["runs"].values())
+                 for name, m in (("unbroken", whole), ("k8s", k8s),
+                                 ("process", proc))}
+    emit("sweep", runs=len(ids), rounds=SWEEP_ROUNDS, run_ids=ids,
+         killed_after=killed, wall_s=walls, runs_wall_s=run_walls,
+         overhead_s={k: walls[k] - v for k, v in run_walls.items()},
+         launches=counts, launches_want=want, launches_want_k8s=want_k8s,
+         uplink_ratio=(n + 4 * L) / (4 * n), uplink_ratio_measured=ratios,
+         report_groups=[(g["key"], g["n"], sorted(g["metrics"]))
+                        for g in groups],
+         preempted=fake.preempted, preempted_attempts=outcomes,
+         resumed_equal=hist(resumed) == hist(whole),
+         k8s_equal=strip(k8s) == strip(whole),
+         process_equal=strip(proc) == {r: strip(whole)[r]
+                                       for r in proc["runs"]},
+         parent_reserved_bytes=parent_reserved)
+    emit("sweep_process", runs=list(proc["runs"]), wall_s=walls["process"],
+         run_wall_s={r: e["wall_s"] for r, e in proc["runs"].items()},
+         **{k: {r: w[k] for r, w in workers.items()}
+            for k in ("startup_s", "spawn_import_s", "cuda_context_s",
+                      "library_load_s", "nvcc_builds")})
+
+    require(killed["done"] == SWEEP_KILL_AFTER and all(
+        e["status"] == "done" for m in (resumed, whole, k8s, proc)
+        for e in m["runs"].values()),
+        f"sweep: killed at {killed}, or a sweep is not complete")
+    require(all(e["attempts"] == 1 for m in (resumed, whole)
+                for e in m["runs"].values()),
+            "sweep: a sequential run ran twice")
+    require(hist(resumed) == hist(whole),
+            "sweep: the resumed sweep's histories differ from the "
+            "unbroken sweep's")
+    require(all(h["eval"] is not None and np.isfinite(h["eval"]["is_proxy"])
+                for e in whole["runs"].values() for h in e["history"][-1:]),
+            "sweep: an is_proxy eval is missing or not finite")
+    require(strip(k8s) == strip(whole),
+            "sweep: the k8s executor's histories differ from the "
+            "sequential one's")
+    require(fake.preempted == [ids[0]] and outcomes == ["preempted", "done"]
+            and pre["attempts"] == 2,
+            f"sweep: preempted {fake.preempted}, attempts {outcomes}")
+    require(counts["k8s"] == want_k8s,
+            f"sweep: k8s launches {counts['k8s']}, want {want_k8s} (the "
+            f"preempted run's retry must resume, not retrain round 1)")
+    require(strip(proc) == {r: strip(whole)[r] for r in proc["runs"]}
+            and len(proc["runs"]) == 2,
+            "sweep: the process worker's histories differ from the "
+            "sequential one's")
+    require(all(w["nvcc_builds"] == 0 for w in workers.values()),
+            f"sweep: the process worker ran nvcc: {workers}")
+    require(len(groups) == 4 and all(g["n"] == 1 for g in groups)
+            and all(set(metric_keys) <= set(g["metrics"]) for g in groups),
+            f"sweep: report groups {[(g['key'], g['n']) for g in groups]}")
+    require(bytes_ok, f"sweep: the int8 runs' bytes are not the none runs' "
+                      f"at the uplink ratio: {ratios}")
+    require(counts["resumed"] == want and counts["unbroken"] == want,
+            f"sweep: launches {counts['resumed']} and "
+            f"{counts['unbroken']}, want {want}")
+    return tallies["unbroken"]
+
+
 PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",
                                                 "splitk_sum_kernel")),
                       ("flash_attention", ("flash_simt_kernel",
@@ -3139,6 +3480,10 @@ def run(out_dir: str, profile: bool = False) -> dict:
     # -- 7d-7e. faults and the quantized uplink on both trainers ---------
     tallies["faults"] = faults_phase(dev, counters, zero_counters)
     tallies["quant"] = quant_phase(dev, counters, zero_counters)
+
+    # -- 7g. sweeps: the CLI killed and resumed, fake k8s, a process ----
+    tallies["sweep"] = sweep_phase(dev, counters, zero_counters,
+                                   os.path.join(out_dir, "sweep"))
     require(all(sum(tallies[MAIN_PATHS[k]][k].values()) > 0
                 for k in counters),
             f"a kernel was not launched on its main path: "

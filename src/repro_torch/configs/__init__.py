@@ -31,6 +31,17 @@ def get_config(name: str) -> ModelConfig:
     return ALL_CONFIGS[name]
 
 
+def register_config(name: str, cfg: ModelConfig, *,
+                    overwrite: bool = False) -> None:
+    """Add a model config that ``spec.model`` can name (the reference's
+    ``register_config``).  A spawned sweep worker imports the registry
+    afresh and sees only the built-in configs."""
+    if name in ALL_CONFIGS and not overwrite:
+        raise ValueError(f"config {name!r} already registered "
+                         "(pass overwrite=True to replace)")
+    ALL_CONFIGS[name] = cfg
+
+
 def smoke_variant(name: str) -> ModelConfig:
     """The reference's reduced variant (``repro/configs/__init__.py:
     smoke_variant``) for the decoder fields this port reads: one pattern
@@ -72,4 +83,4 @@ def smoke_variant(name: str) -> ModelConfig:
 
 __all__ = ["ARCHS", "ALL_CONFIGS", "CELEBA_UNET", "CIFAR10_UNET",
            "SMOKE_UNET", "UNETS", "FLConfig", "ModelConfig", "get_config",
-           "smoke_variant"]
+           "register_config", "smoke_variant"]

@@ -13,21 +13,37 @@ which ``python -m repro_torch.serve --ckpt`` serves) and
 ``history.json``.  ``--device`` defaults to ``cuda``.  ``--trace
 [PATH]`` traces the run (:mod:`repro_torch.obs`; bare, to
 ``<out>/ckpt.npz.trace.jsonl``) and adds the trace's summary to the
-metrics.  Sweeps, their executors and the k8s flags (ROADMAP A.12) are
-not ported yet and raise.
+metrics.
+
+``--sweep grid.json`` switches to grid mode: the JSON is a
+:class:`repro_torch.experiment.sweep.SweepSpec` (either package's), every
+run trains and checkpoints under ``--out/runs/<run_id>/`` on
+``--device``, the resumable manifest is ``--out/sweep.json`` and the
+report ``--out/report.json`` and ``report.md``.  Re-invoking the same
+command resumes; ``--max-runs N`` stops after N run attempts::
+
+    PYTHONPATH=src python -m repro_torch.experiment.runner \\
+        --sweep examples/sweep_smoke.json --out runs/sweep --device cpu
+
+``--executor process`` runs one worker on a CUDA device; ``--executor
+k8s --k8s-fake`` drives the k8s executor against the in-memory
+``FakeCluster``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.experiment.cli import add_obs_flags, write_metrics
+from repro_torch.experiment.report import report_markdown, write_report
 from repro_torch.experiment.resolve import ENGINES, PRECISIONS
 from repro_torch.experiment.run import Experiment, checkpoint_exists, run_spec
 from repro_torch.experiment.spec import DataSpec, ExperimentSpec
+from repro_torch.experiment.sweep import (EXECUTORS, SweepResult, SweepSpec,
+                                          manifest_status, run_sweep)
 from repro_torch.obs.metrics import summarize_trace
 
 PRESETS = {
@@ -49,13 +65,6 @@ PRESETS = {
                       batch_size=32)),
 }
 
-# the reference's flags this port does not run yet -> ROADMAP item
-UNPORTED_FLAGS = {f: "A.12 (sweeps, cluster execution)"
-                  for f in ("--sweep", "--executor", "--max-workers",
-                            "--k8s-fake", "--image", "--namespace",
-                            "--max-runs", "--group-by", "--timeout-s",
-                            "--max-retries")}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -65,9 +74,44 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--spec", help="path to an ExperimentSpec JSON file")
     src.add_argument("--preset", choices=sorted(PRESETS), default="smoke",
                      help="named built-in spec (default: smoke)")
-    for flag, item in UNPORTED_FLAGS.items():
-        ap.add_argument(flag, nargs="?", const="", default=None,
-                        help=f"not ported yet: ROADMAP {item}")
+    src.add_argument("--sweep", help="path to a SweepSpec JSON file: run "
+                                     "the whole grid with a resumable "
+                                     "manifest and an aggregated report")
+    ap.add_argument("--executor", choices=EXECUTORS,
+                    help="[--sweep] run the grid in process (default), "
+                         "over spawn-context worker processes (one on a "
+                         "CUDA device), or as one Kubernetes Job a grid "
+                         "point over shared storage")
+    ap.add_argument("--max-workers", type=int,
+                    help="[--sweep --executor process|k8s] pool size / "
+                         "max in-flight Jobs")
+    ap.add_argument("--k8s-fake", action="store_true",
+                    help="[--sweep --executor k8s] drive the executor "
+                         "against the in-memory FakeCluster (no cluster, "
+                         "no kubernetes package)")
+    ap.add_argument("--image", default="repro:latest",
+                    help="[--sweep --executor k8s] container image for "
+                         "worker Jobs (default: repro:latest)")
+    ap.add_argument("--namespace", default=None,
+                    help="[--sweep --executor k8s] Kubernetes namespace "
+                         "(default: default)")
+    ap.add_argument("--max-runs", type=int,
+                    help="[--sweep] stop after this many run attempts "
+                         "in this invocation (failures count); the "
+                         "manifest stays resumable")
+    ap.add_argument("--group-by",
+                    help="[--sweep] comma-separated axes for the "
+                         "aggregated report (default: the sweep's "
+                         "group_by, else its non-seed axes)")
+    ap.add_argument("--timeout-s", type=float,
+                    help="[--sweep --executor process|k8s] wall-clock "
+                         "budget per run attempt; a run exceeding it is "
+                         "killed and retried or quarantined")
+    ap.add_argument("--max-retries", type=int,
+                    help="[--sweep] retry a crashed or hung run this many "
+                         "times (exponential backoff, resuming from its "
+                         "checkpoint) before quarantining it as failed "
+                         "(default 0)")
     ap.add_argument("--method", help="override spec.method (registry key)")
     ap.add_argument("--engine", choices=ENGINES, help="override spec.engine")
     ap.add_argument("--precision", choices=PRECISIONS,
@@ -95,7 +139,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "spec wins over spec overrides)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
-                         "plain versions)")
+                         "plain versions); with --sweep, every run's")
     return ap
 
 
@@ -122,13 +166,89 @@ def _default_eval(params, cfg, r):
     return {"is_proxy": float(inception_score_proxy(fake))}
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Experiment:
+def _main_sweep(args: argparse.Namespace) -> SweepResult:
+    # single-run flags have no meaning on a grid: refuse them rather than
+    # run something other than what the command line asked for
+    bad = [flag for flag, val in (("--method", args.method),
+                                  ("--engine", args.engine),
+                                  ("--seed", args.seed),
+                                  ("--eval-every", args.eval_every),
+                                  ("--precision", args.precision),
+                                  ("--trace", args.trace),
+                                  ("--metrics", args.metrics))
+           if val is not None]
+    if args.resume:
+        bad.append("--resume")
+    if bad:
+        raise SystemExit(
+            f"--sweep is incompatible with {', '.join(bad)}: declare "
+            "per-run fields in the sweep JSON (base/axes — obs.* axes "
+            "cover tracing); sweep resume is automatic from the "
+            "manifest and the aggregated metrics land in report.json")
+    with open(args.sweep) as f:
+        sweep = SweepSpec.from_json(f.read())
+    if args.rounds is not None:
+        sweep = sweep.replace(rounds=args.rounds)
+    executor = args.executor or "sequential"
+    if args.max_workers is not None and executor not in ("process", "k8s"):
+        raise SystemExit("--max-workers requires --executor process "
+                         "or k8s (the sequential executor runs one grid "
+                         "point at a time)")
+    if (args.k8s_fake or args.namespace is not None) and executor != "k8s":
+        raise SystemExit("--k8s-fake/--namespace require --executor k8s")
+    if executor == "k8s":
+        # built here so that --k8s-fake can inject the in-memory cluster
+        from repro_torch.experiment.cluster import FakeCluster, K8sExecutor
+        executor = K8sExecutor(
+            cluster=FakeCluster() if args.k8s_fake else None,
+            image=args.image, namespace=args.namespace or "default",
+            max_workers=args.max_workers,
+            poll_s=0.0 if args.k8s_fake else 2.0)
+    # the eval hook is live only on the sequential executor (a Python
+    # callable cannot cross the spawn boundary), where a spec's
+    # eval_every says so
+    eval_fn = _default_eval if executor == "sequential" else None
+    res = run_sweep(sweep, args.out, executor=executor,
+                    max_workers=args.max_workers, limit=args.max_runs,
+                    eval_fn=eval_fn, save_every=args.save_every,
+                    timeout_s=args.timeout_s,
+                    max_retries=args.max_retries or 0, device=args.device)
+    group_by = [g.strip() for g in (args.group_by or "").split(",")
+                if g.strip()] or None
+    report = write_report(res.manifest, args.out, group_by=group_by)
+    counts = manifest_status(res.manifest)
+    print(report_markdown(report))
+    print(f"[{sweep.name}] {counts['done']}/{len(res.manifest['runs'])} "
+          f"runs done ({counts['pending']} pending, "
+          f"{counts['failed']} failed) -> {args.out}")
+    if counts["failed"]:
+        raise SystemExit(f"--sweep: {counts['failed']} run(s) failed "
+                         f"(see {args.out}/sweep.json)")
+    return res
+
+
+def main(argv: Optional[Sequence[str]] = None
+         ) -> Union[Experiment, SweepResult]:
     args = build_parser().parse_args(argv)
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP "
-                                      f"{item}")
     os.makedirs(args.out, exist_ok=True)
+    if args.sweep:
+        return _main_sweep(args)
+    # the mirror of _main_sweep's guard: sweep-only flags mean nothing
+    # on a single run, so refuse them rather than ignore them
+    bad = [flag for flag, val in (("--executor", args.executor),
+                                  ("--max-workers", args.max_workers),
+                                  ("--max-runs", args.max_runs),
+                                  ("--group-by", args.group_by),
+                                  ("--timeout-s", args.timeout_s),
+                                  ("--max-retries", args.max_retries),
+                                  ("--namespace", args.namespace))
+           if val is not None]
+    if args.k8s_fake:
+        bad.append("--k8s-fake")
+    if args.image != "repro:latest":
+        bad.append("--image")
+    if bad:
+        raise SystemExit(f"{', '.join(bad)} require --sweep")
     ckpt = os.path.join(args.out, "ckpt.npz")
     if args.resume:
         if not checkpoint_exists(ckpt):

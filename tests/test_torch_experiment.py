@@ -69,6 +69,7 @@ from repro_torch.experiment.registry import (make_trainer, method_entry,
 from repro_torch.experiment.run import Experiment, run_spec
 from repro_torch.experiment.spec import (DataSpec, ExperimentSpec, FaultSpec,
                                          ObsSpec)
+from repro_torch.experiment.sweep import SweepSpec
 from repro_torch.fl import engine
 from repro_torch.metrics import fid
 from repro_torch.obs.trace import Tracer
@@ -197,10 +198,24 @@ def test_registry_and_refusals(monkeypatch, tmp_path):
     assert exp.tracer.enabled and exp.trainer._obs is exp.tracer
     exp.tracer.close()
     monkeypatch.delenv("FEDPHD_OBS")
-    for argv, item in ((["--sweep", "grid.json"], "A.12"),
-                       (["--k8s-fake"], "A.12")):
-        with pytest.raises(NotImplementedError, match=item):
-            runner.main(argv + ["--out", str(tmp_path), "--device", "cpu"])
+    # --sweep and --k8s-fake parse and run a grid (none of its runs
+    # here: --max-runs 0), and refuse as the reference's runner does
+    grid = tmp_path / "grid.json"
+    grid.write_text(SweepSpec(name="tiny", base=SPEC).to_json())
+    for argv, refusal in (
+            (["--sweep", str(grid), "--max-runs", "0"], None),
+            (["--sweep", str(grid), "--executor", "k8s", "--k8s-fake",
+              "--max-runs", "0"], None),
+            (["--sweep", str(grid), "--k8s-fake"], "--executor k8s"),
+            (["--k8s-fake"], "require --sweep")):
+        argv = argv + ["--out", str(tmp_path / "sweep"), "--device", "cpu"]
+        if refusal is None:
+            res = runner.main(argv)
+            assert list(res.manifest["runs"]) == ["base"]
+            assert not res.complete
+        else:
+            with pytest.raises(SystemExit, match=refusal):
+                runner.main(argv)
     # --trace is parsed and turns on the spec's obs (the traced run
     # itself is tests/test_torch_obs.py's)
     args = runner.build_parser().parse_args(["--trace"])

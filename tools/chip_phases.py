@@ -2,7 +2,8 @@
 """Runs single phases of ``chip_smoke.py`` on the card, for iterating on one.
 
   python3 tools/chip_phases.py [memory] [baselines] [centralized] [bf16]
-                               [faults] [quant] [quantmem] [obs] [check]
+                               [faults] [quant] [quantmem] [obs] [sweep]
+                               [check]
 
 Builds the kernels, then runs the named phases of ``chip_smoke.py`` in
 the order given (default: all): ``memory`` is
@@ -11,7 +12,9 @@ three line kinds), ``centralized`` is ``centralized_phase``, ``bf16``
 one fp32 vectorized ``train_run`` and ``train_bf16_phase`` against it,
 ``faults`` is ``faults_phase``, ``quant`` is ``quant_phase``,
 ``quantmem`` is ``quant_memory_phase``, ``obs`` is ``obs_phase`` (its
-traces in ``build/chip_phases/obs``), and ``check`` (last) holds
+traces in ``build/chip_phases/obs``), ``sweep`` is ``sweep_phase`` (its
+manifests and reports in ``build/chip_phases/sweep``), and ``check``
+(last) holds
 every matmul, attention and group-L2 shape the phases before it
 launched against the plain versions (``check_matmul``,
 ``check_attention``, ``check_group_l2``).  A failed check is printed and
@@ -33,7 +36,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("memory", "baselines", "centralized", "bf16", "faults", "quant",
-          "quantmem", "obs", "check")
+          "quantmem", "obs", "sweep", "check")
 
 
 def main(argv) -> int:
@@ -104,6 +107,10 @@ def main(argv) -> int:
                 from repro_torch.configs import CIFAR10_UNET
                 cs.obs_phase(CIFAR10_UNET, dev,
                              os.path.join(ROOT, "build", "chip_phases", "obs"))
+            elif phase == "sweep":
+                cs.merge_tally(tally, cs.sweep_phase(
+                    dev, counters, zero,
+                    os.path.join(ROOT, "build", "chip_phases", "sweep")))
             elif phase == "check" and tally:
                 mm, dx = tally["block_masked_matmul"], \
                     tally["block_masked_matmul_dx"]
