@@ -63,6 +63,27 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             the decode logits after the same 2304 tokens one by one
             (plain ``rglru_decode`` and ring-buffer ``attend``), within
             LM_TOL of max|logit|; 2304 is past the 2048 window;
+7h. lm_train  ``build_opt_init`` and ``build_train_step`` on full-width
+            recurrentgemma-9b cut to LM_TRAIN_DEPTH = 3 layers (one rec,
+            rec, local-attention cycle, 2,753,654,784 params): bf16
+            params from ``model.init`` over an fp32 master, fp32
+            moments, remat on, B = 1, S = 4096 (past the 2048 window),
+            token ids from a numpy seed with the labels shifted by one;
+            one warm-up and LM_TIMED timed steps on the same batch:
+            finite losses, the last below the first, exactly 4 scan, 2
+            scan-backward and 2 attention launches a step (remat
+            recomputes the cycle), no U-Net kernel, every bf16 param
+            its master's cast bitwise, the peak below the card's
+            memory; step p50, tokens/s, peak, and the resident state
+            beside 14 B a param (16 with the step's grads);
+            ``lm_train_cli`` then runs ``python -m
+            repro_torch.launch.train --arch recurrentgemma-9b --steps 3
+            --ckpt`` on the card and loads the checkpoint back;
+7i. lm_grad one loss and gradient of the same model in fp32 (TF32 off)
+            at S = LM_GRAD_SEQ through the kernels and through the plain
+            versions on CPU copies, every leaf within GRAD_TOL of the
+            largest plain gradient and each leaf within GRAD_LEAF_TOL
+            of its own largest, with the host's memory;
 7b. experiment  ``repro_torch.experiment.runner.main`` in process with
             ``--preset paper --eval-every 1``: full-width CIFAR10_UNET,
             20 clients of 256 cifar10-like images (2 classes each), 2
@@ -160,10 +181,12 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             77 forward and dx), attention at hd = 100 (the SIMT kernel:
             rows TMA cannot address) and 144, causal and windowed, ragged
             S = 1000 and S = 16, and the scan on a ragged shape and with a
-            in [0.999, 1), in the dtype each ran (fp32, TF32 off) and in
+            in [0.999, 1), and the scan's backward at each shape
+            ``lm_train`` launched it with, S = 1000 with W = 999 and a in
+            [0.999, 1), in the dtype each ran (fp32, TF32 off) and in
             bf16 (or fp32) beside it, each with its tolerance and its time
             beside the plain version, the library call (none computes the
-            scan) and the bound.  A matmul launch that splits K runs twice
+            scan or its gradient) and the bound.  A matmul launch that splits K runs twice
             and must give the same bits.  Group-L2 is checked per launched
             member signature (the whole table of a launch), in its dtype
             and in bf16: forward within tolerance, a repeat bitwise equal,
@@ -171,9 +194,10 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             (the vectorized run's: C products, C copies of a member
             table) are checked the same way and also against C
             one-client launches, bitwise where the matmul's plan cuts
-            both alike and always for group-L2.  The scan must equal its
-            plain loop bitwise in every case; on TMA-addressable rows its
-            SIMT kernel is timed and checked beside it;
+            both alike and always for group-L2.  The scan and its
+            backward must equal their plain loops bitwise in every case;
+            on TMA-addressable rows the SIMT kernel is timed and checked
+            beside the TMA one;
 9. forward  one full-width U-Net forward through the kernels against the
             same forward through the plain versions (on CPU copies of the
             weights and inputs, so device dispatch picks them), dense and
@@ -189,8 +213,9 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             through one-client launches, within GRAD_TOL of the largest
             gradient;
 11. profile only with ``--profile``: one more training run on each engine,
-            and after lm_serve one more prefill and 8 decode steps, each
-            under ``torch.profiler``: device time by kernel and category,
+            after lm_serve one more prefill and 8 decode steps, and
+            after lm_train one more LM train step, each under
+            ``torch.profiler``: device time by kernel and category,
             the device's idle share and kernels a step, the traces for
             work on the step's speed (the sequential training profile's
             post-processing adds ~4 min).
@@ -206,8 +231,8 @@ int8 uplink over the paper preset's round, its 20 error-feedback rows
 on the card, in chunks of ``client_chunk``'s k with the uplink counted.
 
 Every kernel's counters (``.launches``, the per-shape ``.shapes``, the
-matmul's ``.dx_shapes`` and group-L2's ``.bwd_launches`` and
-``.bwd_shapes``) are set to 0 just before each serving run, each
+matmul's ``.dx_shapes``, and group-L2's and the scan's ``.bwd_launches``
+and ``.bwd_shapes``) are set to 0 just before each serving run, each
 training run, each LM run, each experiment run, each baselines run,
 each faults and quant run and each in-process sweep (the killed and
 resumed pair counted as one), and read just after it.  Group-L2
@@ -233,7 +258,8 @@ matmul's launches on those and ``train`` also
 split into forward and dx; group-L2's entry
 is its forward launches, and ``backward`` (and
 ``backward_train_vectorized``, ``backward_experiment``) gives its
-backward kernel's on those runs.
+backward kernel's on those runs; the scan's ``backward`` gives its
+backward kernel's on ``lm_train``.
 Any failure exits nonzero before the last line.
 """
 from __future__ import annotations
@@ -269,7 +295,7 @@ GRAD_LEAF_FLOOR = 1e-2
 # the attention kernel vs the plain ring-buffer attention)
 LM_TOL = 1e-4
 SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
-LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency")
+LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency", "lm_train")
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
 BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "experiment", "baselines",
@@ -312,6 +338,12 @@ LM_BATCH, LM_SEQ, LM_TIMED = 2, 4096, 3
 LM_SERVE = dict(slots=8, requests=16, max_tokens=32, cache_len=4096)
 LM_DEPTH, LM_CONSISTENCY_SEQ = 5, 2304
 LM_PROFILE_STEPS = 8
+# phase 7h (lm_train): full width at the least depth that runs both
+# kernels, one (rec, rec, local attention) cycle; bf16 params, an fp32
+# master and two fp32 moments, and bf16 grads in the step: 16 B a param
+LM_TRAIN_DEPTH, LM_TRAIN_SEQ, LM_TRAIN_LR, LM_TRAIN_WARMUP = 3, 4096, 3e-4, 1
+LM_BYTES_PER_PARAM = 16
+LM_GRAD_SEQ = 512                # phase 7i (lm_grad), fp32
 # phase 7c, the flat baselines: the train cell's data at full width
 BASELINE_METHODS = ("fedavg", "fedprox", "moon", "scaffold", "feddiffuse")
 BASELINE_ROUNDS = 2
@@ -788,6 +820,53 @@ def check_scan(cases, gen, dev, log):
     return worst
 
 
+def check_scan_backward(cases, gen, dev, log):
+    """cases: ((B, S, W), a's range, dtype, tally key or None).  a is
+    drawn uniform in the range, b and the output gradient g standard
+    normal, h the forward's output.  Each kernel's (da, db) must equal
+    the plain reverse loop's bits; where the wrapper takes the TMA
+    pipeline the SIMT kernel is timed and checked beside it."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as scan
+    for (B, S, W), (lo, hi), dtype_name, key in cases:
+        dt = getattr(torch, dtype_name)
+        a = (lo + (hi - lo) * torch.rand(B, S, W, generator=gen,
+                                         device=dev)).to(dt)
+        b = torch.randn(B, S, W, generator=gen, device=dev).to(dt)
+        g = torch.randn(B, S, W, generator=gen, device=dev).to(dt)
+        h = scan.rglru_scan(a, b)
+        kern = scan.variant(W, dt)
+        others = ("simt",) if kern == "tma" else ()
+        got = scan.rglru_scan_backward(a, h, g)
+        other_out = {k: scan.launch_backward(a, h, g, k) for k in others}
+        want = scan.rglru_scan_backward_plain(a, h, g)
+        torch.cuda.synchronize()
+        equal = lambda x: all(torch.equal(u, v) for u, v in zip(x, want))
+        # g, a, h read once, da and db written once; a multiply, an add
+        # and a multiply per element in fp32
+        b_ms, b_by = bound_ms(3.0 * B * S * W,
+                              5 * B * S * W * a.element_size(), "float32")
+        row = {"kernel": "rglru_scan", "role": "bwd", "key": key, "B": B,
+               "S": S, "W": W, "a_range": [lo, hi], "dtype": dtype_name,
+               "variant": kern, "bitwise_equal": equal(got),
+               "max_abs_err": max(float((u.float() - v.float()).abs().max())
+                                  for u, v in zip(got, want)),
+               "ms": time_ms(lambda: scan.rglru_scan_backward(a, h, g)),
+               "plain_ms": time_ms(
+                   lambda: scan.rglru_scan_backward_plain(a, h, g), iters=2),
+               # no single PyTorch call computes the recurrence's gradient
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        for k, out in other_out.items():
+            row[f"ms_{k}"] = time_ms(lambda: scan.launch_backward(a, h, g,
+                                                                  k))
+            row[f"bitwise_equal_{k}"] = equal(out)
+        log(row)
+        require(row["bitwise_equal"] and all(row[f"bitwise_equal_{k}"]
+                                             for k in others),
+                f"rglru_scan backward {(B, S, W)} a in [{lo}, {hi}) "
+                f"{dtype_name}: a kernel differs from the plain loop's bits")
+
+
 def ptxas_summary(log: str):
     """Each compiled kernel's registers and spill stores, from nvcc's
     ``-Xptxas=-v`` report."""
@@ -857,6 +936,7 @@ def tally_of(counters):
     tally["block_masked_matmul_dx"] = dict(
         counters["block_masked_matmul"].dx_shapes)
     tally["group_l2_norms_bwd"] = dict(counters["group_l2_norms"].bwd_shapes)
+    tally["rglru_scan_bwd"] = dict(counters["rglru_scan"].bwd_shapes)
     return tally
 
 
@@ -1018,6 +1098,232 @@ def lm_consistency_phase(cfg, dev, counters, zero_counters):
             f"lm_consistency: prefill vs decode logits err {err} > "
             f"{LM_TOL} x {scale}")
     return tally
+
+
+# ---------------------------------------------------------------------------
+# phases 7h-7i: RecurrentGemma training
+# ---------------------------------------------------------------------------
+
+def lm_train_batch(cfg, dev, seq, seed):
+    """B = 1 token ids from a numpy seed; the labels are the tokens
+    shifted by one, the last position -1."""
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, seq))
+    labels = np.concatenate([toks[:, 1:], -np.ones((1, 1), np.int64)], 1)
+    return {"tokens": torch.from_numpy(toks).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)}
+
+
+def tensor_bytes(tree):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def lm_train_phase(dev, counters, zero_counters, out_dir, profile=False):
+    """``build_opt_init`` and LM_TRAIN_WARMUP + LM_TIMED steps of
+    ``build_train_step`` on the same batch: full-width recurrentgemma-9b
+    at LM_TRAIN_DEPTH layers, bf16 params from ``model.init`` over an
+    fp32 master, fp32 moments, remat on, B = 1, S = LM_TRAIN_SEQ (past
+    the 2048 window); with ``profile``, one more step under
+    ``torch.profiler`` (:func:`profiled`).  Then the training CLI on the
+    card.  Returns the steps' tallies."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.convert import state_dict
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch.steps import build_opt_init, build_train_step
+    from repro_torch.models import model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(LM_ARCH).replace(num_layers=LM_TRAIN_DEPTH)
+    n_rec, n_attn = lm_kinds(cfg)
+    gen = torch.Generator(dev)
+    gen.manual_seed(2)
+    params = model.init(cfg, gen, device=dev)
+    opt = build_opt_init(cfg)(params)
+    n = sum(p.numel() for p in tree_leaves(params))
+    resident = tensor_bytes(params) + tensor_bytes(opt)
+    allocated = torch.cuda.memory_allocated(dev)
+    batch = lm_train_batch(cfg, dev, LM_TRAIN_SEQ, 3)
+    step = build_train_step(cfg, lr=LM_TRAIN_LR)
+    runs = LM_TRAIN_WARMUP + LM_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    times, losses = [], []
+    for i in range(runs):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    bwd = scan.rglru_scan.bwd_launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    master_cast = all(torch.equal(p, m.to(p.dtype)) for p, m in
+                      zip(tree_leaves(params), tree_leaves(opt.master)))
+    med = float(np.median(times[LM_TRAIN_WARMUP:]))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    want = {"rglru_scan": 2 * n_rec * runs, "rglru_scan_bwd": n_rec * runs,
+            "flash_attention": 2 * n_attn * runs}
+    got = {"rglru_scan": launches["rglru_scan"], "rglru_scan_bwd": bwd,
+           "flash_attention": launches["flash_attention"]}
+    emit("lm_train", model=cfg.name, layers=cfg.num_layers,
+         cut=f"depth 38 -> {LM_TRAIN_DEPTH}", params=n, dtype=cfg.dtype,
+         param_dtype=cfg.param_dtype, master="float32", moments="float32",
+         remat=True, batch=1, seq=LM_TRAIN_SEQ, window=cfg.sliding_window,
+         lr=LM_TRAIN_LR, losses=losses, warmup_ms=times[0] * 1e3,
+         step_ms=[t * 1e3 for t in times[LM_TRAIN_WARMUP:]],
+         step_ms_p50=med * 1e3, tokens_per_s=LM_TRAIN_SEQ / med,
+         peak_mem_bytes=peak, card_mem_bytes=total,
+         state_bytes=resident, state_allocated_bytes=allocated,
+         state_estimate_bytes=14 * n,
+         state_with_grads_estimate_bytes=LM_BYTES_PER_PARAM * n,
+         launches={**launches, "rglru_scan_bwd": bwd},
+         launches_want=want, params_are_master_cast=master_cast)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"lm_train: losses {losses} are not finite and falling")
+    require(got == want, f"lm_train: launches {got}, want {want} (remat: "
+            f"a forward and a recompute a step)")
+    require(launches["block_masked_matmul"] == 0
+            and launches["group_l2_norms"] == 0,
+            f"lm_train: a U-Net kernel was launched: {launches}")
+    require(master_cast, "lm_train: a bf16 param is not its master's cast")
+    require(peak < total, f"lm_train: peak {peak} >= the card's {total}")
+    if profile:
+        os.makedirs(out_dir, exist_ok=True)
+        emit("profile", run="lm_train step, profiled", seq=LM_TRAIN_SEQ,
+             **profiled(lambda: step(params, opt, batch, runs),
+                        os.path.join(out_dir, "lm_train_profile.txt")))
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+
+    # the CLI: the smoke variant on the default device, and its checkpoint
+    ckpt = os.path.join(out_dir, "lm_train", "lm.npz")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--arch", LM_ARCH, "--steps", "3", "--ckpt", ckpt],
+                         cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(cli.returncode == 0, f"lm_train CLI failed: {cli.stderr[-2000:]}")
+    tree, meta = checkpoint.load(ckpt)
+    lines = cli.stdout.strip().splitlines()
+    small = smoke_variant(LM_ARCH)
+    want_keys = set(state_dict(model.init(small, torch.Generator(),
+                                          device="cpu")))
+    emit("lm_train_cli", seconds=cli_s, stdout_tail=lines[-3:],
+         checkpoint_leaves=len(state_dict(tree)), metadata=meta)
+    require(set(state_dict(tree)) == want_keys
+            and meta["arch"] == small.name and meta["steps"] == 3
+            and np.isfinite(meta["final_loss"]),
+            f"lm_train CLI: the checkpoint does not hold the smoke model "
+            f"({meta})")
+    return tally
+
+
+def host_memory():
+    """(MemTotal, MemAvailable) in bytes, from /proc/meminfo."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            info[k] = int(v.split()[0]) * 1024
+    return info.get("MemTotal"), info.get("MemAvailable")
+
+
+def lm_grad_phase(dev, counters):
+    """One loss and gradient of full-width recurrentgemma-9b at
+    LM_TRAIN_DEPTH layers in fp32 (TF32 off), B = 1, S = LM_GRAD_SEQ,
+    through the kernels and through the plain versions on CPU copies of
+    the weights; every leaf within GRAD_TOL of the largest plain
+    gradient, and every leaf also within GRAD_LEAF_TOL of its own
+    largest: phase 10's floor (GRAD_LEAF_FLOOR) is for the U-Net's
+    GroupNorm-fed biases, whose gradients cancel to rounding level, and
+    the LM has no such leaf, while its RG-LRU gates (``w_a``, ``b_a``,
+    ``log_lambda``: their gradient comes only through the scan
+    backward's da) sit far below that floor.  The line gives each leaf's
+    largest plain gradient and its error relative to it, and names the
+    worst."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import state_dict
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.models import model
+    from repro_torch.tree import tree_leaves
+
+    cpu = torch.device("cpu")
+    cfg = get_config(LM_ARCH).replace(num_layers=LM_TRAIN_DEPTH,
+                                      dtype="float32", param_dtype="float32")
+    gen = torch.Generator(dev)
+    gen.manual_seed(4)
+    params = model.init(cfg, gen, device=dev)
+    batch = lm_train_batch(cfg, dev, LM_GRAD_SEQ, 5)
+
+    def loss_and_grads(params, batch):
+        leaves = tree_leaves(params)
+        for v in leaves:
+            v.requires_grad_()
+        loss = model.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        for v in leaves:
+            v.requires_grad_(False)
+        return float(loss.detach()), grads
+
+    before = {k: fn.launches for k, fn in counters.items()}
+    bwd0 = scan.rglru_scan.bwd_launches
+    loss, grads = loss_and_grads(params, batch)
+    torch.cuda.synchronize()
+    ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+    ran["rglru_scan_bwd"] = scan.rglru_scan.bwd_launches - bwd0
+    t0 = time.perf_counter()
+    cparams = to_device(params, cpu)
+    del params
+    mem_total, mem_free = host_memory()
+    want_loss, want = loss_and_grads(cparams, to_device(batch, cpu))
+    cpu_s = time.perf_counter() - t0
+    after = {k: fn.launches for k, fn in counters.items()}
+    names = list(state_dict(cparams))
+    scale = max(float(g.abs().max()) for g in want)
+    errs = [float((a.to(cpu) - b).abs().max()) for a, b in zip(grads, want)]
+    own = [float(b.abs().max()) for b in want]
+    rel = {n: e / m if m > 0 else float("inf")
+           for n, e, m in zip(names, errs, own)}
+    worst = max(rel, key=rel.get)
+    emit("lm_grad", model=cfg.name, layers=cfg.num_layers, dtype="float32",
+         seq=LM_GRAD_SEQ, params=sum(g.numel() for g in want), loss=loss,
+         loss_plain=want_loss, loss_err=abs(loss - want_loss),
+         leaves=len(want), max_abs_grad_plain=scale,
+         max_abs_grad_err=max(errs), tol=GRAD_TOL * scale,
+         worst_leaf=worst, worst_leaf_rel_err=rel[worst],
+         leaf_tol_rel=GRAD_LEAF_TOL,
+         leaf_max_abs_plain=dict(zip(names, own)), leaf_rel_err=rel,
+         kernel_launches=ran, cpu_seconds=cpu_s,
+         host_mem_total_bytes=mem_total,
+         host_mem_available_bytes_with_cpu_params=mem_free,
+         cpu_copy_bytes=2 * tensor_bytes(cparams))
+    require(ran["rglru_scan"] > 0 and ran["rglru_scan_bwd"] > 0
+            and ran["flash_attention"] > 0,
+            f"lm_grad: the card's pass skipped a kernel: {ran}")
+    require(after == {k: before[k] + ran[k] for k in before},
+            "lm_grad: the plain pass launched a kernel")
+    require(abs(loss - want_loss) <= FORWARD_TOL * abs(want_loss),
+            f"lm_grad: loss {loss} vs plain {want_loss}")
+    require(max(errs) <= GRAD_TOL * scale and scale > 0,
+            f"lm_grad: gradient err {max(errs)} > {GRAD_TOL} x {scale}")
+    require(rel[worst] <= GRAD_LEAF_TOL,
+            f"lm_grad: leaf {worst}'s gradient is {rel[worst]} of its own "
+            f"max|plain| off (limit {GRAD_LEAF_TOL})")
+    del grads, want, cparams
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3083,7 +3389,11 @@ PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",
                       ("group_l2_norms", ("group_l2_partials",
                                           "group_l2_sums", "group_l2_bwd")),
                       ("rglru_scan", ("rglru_scan_tma", "rglru_scan_kernel")),
-                      ("library_gemm", ("gemm", "gemv", "nvjet")))
+                      ("rglru_scan_bwd", ("rglru_scan_bwd",)),
+                      ("library_gemm", ("gemm", "gemv", "nvjet")),
+                      ("elementwise", ("elementwise",)),
+                      ("reduce", ("reduce_kernel",)),
+                      ("index_scatter", ("index", "scatter", "gather")))
 
 
 def profiled(fn, out_path):
@@ -3398,6 +3708,8 @@ def run(out_dir: str, profile: bool = False) -> dict:
         bmm.block_masked_matmul.dx_shapes.clear()
         gl2.group_l2_norms.bwd_launches = 0
         gl2.group_l2_norms.bwd_shapes.clear()
+        scan.rglru_scan.bwd_launches = 0
+        scan.rglru_scan.bwd_shapes.clear()
 
     # -- 3. serving: the CLI, dense and at ratio 0.44 ------------------------
     tallies = {}                  # path -> kernel -> {shape key: launches}
@@ -3470,6 +3782,12 @@ def run(out_dir: str, profile: bool = False) -> dict:
                        param_dtype="float32"), dev, counters, zero_counters)
     torch.cuda.empty_cache()
 
+    # -- 7h-7i. RecurrentGemma training: the step at full width, the CLI,
+    # and a full-width fp32 gradient against the plain versions ----------
+    tallies["lm_train"] = lm_train_phase(dev, counters, zero_counters,
+                                         out_dir, profile=profile)
+    lm_grad_phase(dev, counters)
+
     # -- 4b. the experiment API: the paper preset, run and resumed ---------
     tallies["experiment"] = experiment_phase(dev, counters, zero_counters)
 
@@ -3501,7 +3819,11 @@ def run(out_dir: str, profile: bool = False) -> dict:
     rows = []
 
     def log(row):                 # one line per case, to the log only
-        if row.get("key") is not None:
+        if row.get("key") is not None and row["kernel"] == "rglru_scan" \
+                and row.get("role") == "bwd":
+            row["launches"] = {"lm_train_bwd": tallies["lm_train"][
+                "rglru_scan_bwd"].get(row["key"], 0)}
+        elif row.get("key") is not None:
             row["launches"] = {p: tallies[p][row["kernel"]].get(row["key"], 0)
                                for p in PATHS}
             for p in BACKWARD_PATHS:
@@ -3614,6 +3936,16 @@ def run(out_dir: str, profile: bool = False) -> dict:
         scan_err = check_scan(scan_cases, gen, dev, log)
         emit("kernels", kernel="rglru_scan", launched_shapes=len(scan_keys),
              cases=len(scan_cases), max_abs_err=scan_err, tol_rel=TOL)
+        bwd_keys = launched("rglru_scan_bwd", ("lm_train",))
+        bwd_cases = [((B, S, W), (0.0, 1.0), dt, key)
+                     for key in bwd_keys for B, S, W, dt in (key,)]
+        for dt in ("float32", "bfloat16"):
+            bwd_cases += [((3, 1000, 999), (0.0, 1.0), dt, None),
+                          ((1, LM_TRAIN_SEQ, 512), (0.999, 1.0), dt, None)]
+        check_scan_backward(bwd_cases, gen, dev, log)
+        emit("kernels", kernel="rglru_scan_backward",
+             launched_shapes=len(bwd_keys), cases=len(bwd_cases),
+             bitwise_equal=True)
     finally:
         case_log.close()
 
@@ -3686,6 +4018,10 @@ def run(out_dir: str, profile: bool = False) -> dict:
                 extra["backward" if p == "train" else f"backward_{p}"] = \
                     path_totals(rows, tallies[p]["group_l2_norms_bwd"],
                                 role="bwd")
+        if name == "rglru_scan":
+            extra["backward"] = {
+                **path_totals(rows, tallies["lm_train"]["rglru_scan_bwd"],
+                              role="bwd"), "path": "lm_train"}
         main = paths[MAIN_PATHS[name]]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name],
@@ -3710,8 +4046,9 @@ def main() -> int:
                                                   "chip_smoke"),
                     help="directory for the per-case kernel log")
     ap.add_argument("--profile", action="store_true",
-                    help="also run the training path, one LM prefill and "
-                         "8 LM decode steps once more under torch.profiler "
+                    help="also run the training path, one LM prefill, "
+                         "8 LM decode steps and one LM train step once "
+                         "more under torch.profiler "
                          "(device time by kernel, idle share; the tables "
                          "go to DIR/*_profile.txt)")
     args = ap.parse_args()

@@ -3,9 +3,11 @@ serves, their reduced smoke variants, and the federated-learning
 config."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.configs.base import (DECODE_32K, LONG_500K, PREFILL_32K,
+                                      TRAIN_4K, FLConfig, InputShape,
+                                      ModelConfig)
 from repro_torch.configs.ddpm_unet import CELEBA_UNET, CIFAR10_UNET, SMOKE_UNET
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma_9b
 
@@ -22,6 +24,11 @@ ARCHS: Dict[str, ModelConfig] = {
 }
 
 ALL_CONFIGS: Dict[str, ModelConfig] = {**ARCHS, **UNETS}
+
+
+def list_archs() -> List[str]:
+    """The decoder architectures the port has, sorted."""
+    return sorted(ARCHS.keys())
 
 
 def get_config(name: str) -> ModelConfig:
@@ -82,5 +89,6 @@ def smoke_variant(name: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "ALL_CONFIGS", "CELEBA_UNET", "CIFAR10_UNET",
-           "SMOKE_UNET", "UNETS", "FLConfig", "ModelConfig", "get_config",
-           "register_config", "smoke_variant"]
+           "DECODE_32K", "LONG_500K", "PREFILL_32K", "SMOKE_UNET",
+           "TRAIN_4K", "UNETS", "FLConfig", "InputShape", "ModelConfig",
+           "get_config", "list_archs", "register_config", "smoke_variant"]

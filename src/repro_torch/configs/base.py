@@ -117,6 +117,21 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class InputShape:
+    """One assigned (global) input shape (``repro/configs/base.py``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                            # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+
+
 _MODEL_TUPLE_FIELDS = ("layer_pattern", "channel_mults", "attn_resolutions")
 
 

@@ -52,6 +52,8 @@ SIGNATURES = {
     "group_l2_bwd_launch": [_P, _P, _I, _P, _I, _I, _P, _P],
     # a, b, h, B, S, W, bf16, kernel, stream
     "rglru_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, a, h, da, db, B, S, W, bf16, kernel, stream
+    "rglru_scan_bwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,25 +1,19 @@
-"""Model interface (``repro/models/model.py``): ``init`` dispatches on
-``cfg.arch_type``; the U-Net branch trains (``loss_fn``), the decoder
-branch serves (``prefill``, ``init_cache``, ``decode``,
-``reset_cache_slots``)."""
+"""Model interface (``repro/models/model.py``): ``init`` and
+``loss_fn`` dispatch on ``cfg.arch_type`` (the U-Net's DDPM loss, the
+decoder's chunked cross-entropy); the decoder serves through
+``prefill``, ``init_cache``, ``decode`` and ``reset_cache_slots``;
+``input_specs`` and ``make_inputs`` give a shape's inputs."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.diffusion.ddpm import ddpm_loss
 from repro_torch.diffusion.schedule import linear_schedule
 from repro_torch.models import transformer as tfm
 from repro_torch.models.unet import Params, apply_unet, init_unet
-
-
-def _require_unet(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "unet":
-        raise NotImplementedError(f"the port trains U-Nets only; "
-                                  f"{cfg.name!r} is {cfg.arch_type!r} "
-                                  f"(LM training: ROADMAP A.13)")
 
 
 def init(cfg: ModelConfig, generator: torch.Generator,
@@ -34,15 +28,24 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             masks: Optional[Dict[str, torch.Tensor]] = None,
             clients: Optional[int] = None,
             t: Optional[torch.Tensor] = None,
-            eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The DDPM epsilon loss of one batch (``batch["images"]``), with t
-    and eps drawn from ``generator`` unless given.  Training runs the
-    U-Net without dropout, as the reference's loss does
+            eps: Optional[torch.Tensor] = None,
+            remat: bool = True) -> torch.Tensor:
+    """A U-Net's DDPM epsilon loss of one batch (``batch["images"]``),
+    with t and eps drawn from ``generator`` unless given.  Training runs
+    the U-Net without dropout, as the reference's loss does
     (``apply_unet(train=False)``).  ``masks``: the sparse-phase prune
     masks (PruneGroup name -> 0/1 row), applied as masked GEMMs.
     ``clients=C``: stacked params and C batches one after another; the
-    result is the (C,) per-client losses."""
-    _require_unet(cfg)
+    result is the (C,) per-client losses.
+
+    A decoder's loss is :func:`transformer.chunked_xent` of
+    ``batch["tokens"]`` against ``batch["labels"]`` (-1 ignored), with
+    ``remat`` (the reference's default ``ApplyOptions.remat=True``); its
+    aux term is 0 until MoE layers are ported (ROADMAP A.13)."""
+    if cfg.arch_type != "unet":
+        hidden = tfm.forward(params, cfg, batch, remat=remat)
+        return tfm.chunked_xent(params, cfg, hidden, batch["labels"],
+                                remat=remat)
     x0 = batch["images"]
     schedule = linear_schedule(cfg.diffusion_steps, device=x0.device)
     return ddpm_loss(lambda x_t, tt: apply_unet(params, cfg, x_t, tt,
@@ -70,3 +73,51 @@ def reset_cache_slots(cache, fresh, reset: torch.Tensor):
     """Per-slot cache reset for continuous-batching refill (see
     :func:`repro_torch.models.transformer.reset_cache_slots`)."""
     return tfm.reset_cache_slots(cache, fresh, reset)
+
+
+class InputSpec(NamedTuple):
+    """A model input's shape and dtype (the reference's
+    ``jax.ShapeDtypeStruct`` stand-in)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, InputSpec]:
+    """Shape and dtype of every model input of ``shape``, as the
+    reference's ``input_specs`` gives them: a U-Net's images and labels;
+    a decoder's ``tokens`` (one per row when decoding) and, in training,
+    ``labels``."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if cfg.arch_type == "unet":
+        return {"images": InputSpec((B, cfg.image_size, cfg.image_size,
+                                     cfg.in_channels), torch.float32),
+                "labels": InputSpec((B,), i32)}
+    tfm.stack_plan(cfg)              # raises for what is not ported
+    if shape.mode == "decode":
+        return {"tokens": InputSpec((B, 1), i32)}
+    specs = {"tokens": InputSpec((B, S), i32)}
+    if shape.mode == "train":
+        specs["labels"] = InputSpec((B, S), i32)
+    return specs
+
+
+def make_inputs(cfg: ModelConfig, shape: InputShape,
+                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Random inputs matching :func:`input_specs`, drawn from
+    ``generator`` on its device: integers uniform in [0, vocab) (a
+    U-Net's labels in [0, num_classes)), floats standard normal cast to
+    their dtype.  The port cannot reproduce the reference's
+    ``jax.random`` draws: the same seed gives other numbers."""
+    out = {}
+    device = generator.device
+    for k, (shp, dt) in input_specs(cfg, shape).items():
+        if dt == torch.int32:
+            hi = cfg.vocab_size if cfg.arch_type != "unet" \
+                else max(cfg.num_classes, 1)
+            out[k] = torch.randint(0, max(hi, 2), shp, generator=generator,
+                                   device=device, dtype=torch.int32)
+        else:
+            out[k] = torch.randn(shp, generator=generator,
+                                 device=device).to(dt)
+    return out

@@ -2,17 +2,18 @@
 (``repro/models/rglru.py``).
 
 A full sequence runs the diagonal linear recurrence h_t = a_t h_{t-1} +
-b_t through the hand-written scan kernel
-(:func:`repro_torch.kernels.rglru_scan.ops.rglru_scan`), where the
-reference runs ``lax.associative_scan``; decode carries (h, conv window)
-state and takes one step in plain tensor ops, as the reference does.
+b_t through the hand-written scan kernel and trains through its
+backward kernel (:class:`repro_torch.kernels.rglru_scan.ops.RGLRUScan`),
+where the reference runs and differentiates ``lax.associative_scan``;
+decode carries (h, conv window) state and takes one step in plain
+tensor ops, as the reference does.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ops import RGLRUScan
 from repro_torch.models.common import dense_init, normal
 
 _C = 8.0  # RG-LRU temperature
@@ -72,7 +73,7 @@ def apply_rglru(p, x: torch.Tensor, *, conv_width: int) -> torch.Tensor:
     xr = x @ p["w_x"]
     xc = _conv1d(p, xr, conv_width)
     a, b = _gates(p, xc)
-    h = rglru_scan(a.contiguous(), b.contiguous())
+    h = RGLRUScan.apply(a.contiguous(), b.contiguous())
     gate = F.gelu(x @ p["w_y"], approximate="tanh")
     return (h.to(x.dtype) * gate) @ p["w_out"]
 

@@ -1,9 +1,9 @@
-"""Decoder stack (``repro/models/transformer.py``), the subset the
-RecurrentGemma serving path runs: global and local attention layers and
-RG-LRU recurrent layers, each with a dense FFN; full-sequence prefill
-and single-token decode with per-kind caches (ring-buffer KV for
-windowed attention, full KV for global attention, O(1) state for
-RG-LRU).
+"""Decoder stack (``repro/models/transformer.py``), the subset
+RecurrentGemma runs: global and local attention layers and RG-LRU
+recurrent layers, each with a dense FFN; the full-sequence forward
+(prefill, and training with ``remat``), the chunked cross-entropy, and
+single-token decode with per-kind caches (ring-buffer KV for windowed
+attention, full KV for global attention, O(1) state for RG-LRU).
 
 Parameters are the reference's tree: ``head`` (unstacked leading
 layers), ``cycles`` (one tree per position in the layer pattern, each
@@ -12,11 +12,16 @@ leaf stacked over the pattern's repetitions on its first axis) and
 carries weights across unchanged.  The reference scans the cycles with
 ``lax.scan``; here a Python loop walks the stacked leaves' first axis.
 
-On a CUDA tensor the prefill's recurrences launch the scan kernel and
-its attention the attention kernel (``models/ops.py:attention``, as the
-reference's Pallas route); the dense projections are plain ``@``, as the
-reference leaves them to XLA outside any kernel, and the decode step is
-plain tensor ops, as the reference's is.  MoE, MLA, RWKV and
+On a CUDA tensor the forward's recurrences launch the scan kernel (and
+their gradients its backward kernel) and its attention the attention
+kernel (``models/ops.py:attention``, as the reference's Pallas route,
+with the reference's dense recompute backward); the dense projections
+are plain ``@``, as the reference leaves them to XLA outside any
+kernel, and the decode step is plain tensor ops, as the reference's is.
+``remat`` is the reference's ``ApplyOptions.remat``: each pattern cycle
+and each cross-entropy chunk runs under ``torch.utils.checkpoint``, so
+the backward recomputes it (its kernels launch again) instead of
+holding its activations.  MoE, MLA, RWKV and
 encoder-decoder or VLM models raise ``NotImplementedError`` (ROADMAP
 A.13).
 """
@@ -26,6 +31,7 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
                                       ModelConfig)
@@ -237,14 +243,32 @@ def _layers(params, plan: StackPlan):
         yield params["tail"][i], kind, ("tail", i, None)
 
 
+def _apply_cycle(cycle_params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One repetition of the layer pattern."""
+    for lp, kind in zip(cycle_params, cfg.layer_pattern):
+        x = apply_layer_full(lp, x, kind, cfg, positions)
+    return x
+
+
 def forward(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor], *,
+            remat: bool = False) -> torch.Tensor:
     """Full-sequence forward: ``batch["tokens"]`` (B, S) -> final-normed
-    hidden (B, S, d)."""
+    hidden (B, S, d).  ``remat``: each pattern cycle is recomputed in the
+    backward (the reference's ``jax.checkpoint`` of its scan body)."""
     plan = stack_plan(cfg)
     x = embed_tokens(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for lp, kind, _ in _layers(params, plan):
+    for c in range(plan.n_cycles):
+        cyc = [_cycle(params["cycles"][pos], c)
+               for pos in range(len(plan.pattern))]
+        if remat:
+            x = checkpoint(_apply_cycle, cyc, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _apply_cycle(cyc, x, cfg, positions)
+    for lp, kind in zip(params["tail"], plan.tail_kinds):
         x = apply_layer_full(lp, x, kind, cfg, positions)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
@@ -257,6 +281,49 @@ def logits_from_hidden(params, cfg: ModelConfig,
                        hidden: torch.Tensor) -> torch.Tensor:
     logits = hidden @ lm_head_weight(params, cfg).to(hidden.dtype)
     return softcap(logits, cfg.logit_softcap)
+
+
+def _xent_chunk(h: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                cfg: ModelConfig):
+    """(sum of the kept positions' losses, their count) of one chunk, both
+    fp32.  The logits stay in the activation dtype, so the cotangent into
+    the backbone does too; only the reductions are fp32."""
+    logits = softcap(h @ w.to(h.dtype), cfg.logit_softcap)
+    lmax = logits.float().amax(dim=-1, keepdim=True).detach()
+    shifted = logits - lmax.to(logits.dtype)
+    lse = torch.log(torch.sum(torch.exp(shifted).float(), dim=-1)) \
+        + lmax[..., 0]
+    yc = torch.clamp(y, 0, cfg.vocab_size - 1).long()
+    correct = torch.gather(logits, -1, yc[..., None])[..., 0].float()
+    mask = (y >= 0).float()
+    return torch.sum((lse - correct) * mask), torch.sum(mask)
+
+
+def chunked_xent(params, cfg: ModelConfig, hidden: torch.Tensor,
+                 labels: torch.Tensor, *, chunk: int = 512,
+                 remat: bool = True) -> torch.Tensor:
+    """Cross-entropy without materializing (B, S, V) logits.
+
+    hidden (B, S, d); labels (B, S) int, -1 = ignore.  The sequence goes
+    in chunks of ``chunk`` positions (shrunk until it divides S), each
+    recomputed in the backward under ``remat``.  Returns the mean loss
+    over the kept positions (fp32 0-d)."""
+    B, S, d = hidden.shape
+    w = lm_head_weight(params, cfg)
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        h, y = hidden[:, i:i + chunk], labels[:, i:i + chunk]
+        if remat:
+            part, n = checkpoint(_xent_chunk, h, y, w, cfg,
+                                 use_reentrant=False)
+        else:
+            part, n = _xent_chunk(h, y, w, cfg)
+        loss_sum, count = loss_sum + part, count + n
+    return loss_sum / torch.clamp(count, min=1.0)
 
 
 # ===========================================================================

@@ -1,7 +1,9 @@
 """Nested dict/list parameter trees: the port's stand-in for
 ``jax.tree``.  Leaves are visited in insertion order (dict keys as
 stored, list, tuple and NamedTuple items in order), the same order in :func:`tree_leaves`,
-:func:`tree_map` and :func:`tree_unflatten`."""
+:func:`tree_map` and :func:`tree_unflatten`.  ``None`` is an empty
+subtree, as in ``jax.tree``: it holds no leaf and maps to ``None`` (an
+``AdamState`` without a master, a decoder's empty ``cycles`` slot)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Iterable, List
@@ -10,6 +12,8 @@ from typing import Any, Callable, Iterable, List
 def tree_map(fn: Callable, tree, *rest) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     each tree in ``rest`` (same structure)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}

@@ -120,8 +120,13 @@ def test_apply_unet_matches_jax(jax_params, torch_params, ratio):
     t = np.array([3, 97], np.int32)
     jmasks = None if ratio == 0 else \
         jax_masks_for_ratio(jax_params, JCFG, ratio)
+    # one forward: XLA's O0 compiles it in less time than the default
+    # level takes, and one run does not pay for the slower code
     fwd = jax.jit(lambda p, x_, t_: jax_apply_unet(p, JCFG, x_, t_,
-                                                   masks=jmasks))
+                                                   masks=jmasks),
+                  compiler_options={"xla_backend_optimization_level": 0,
+                                    "xla_llvm_disable_expensive_passes":
+                                        True})
     want = fwd(jax_params, jnp.asarray(x), jnp.asarray(t))
     masks = None if jmasks is None else masks_from_jax(jmasks)
     got = apply_unet(torch_params, SMOKE_UNET, torch.from_numpy(x),
@@ -287,9 +292,16 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+        "print(' '.join(sorted(n for n in sys.modules "
+        "if n.startswith('repro_torch'))))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) > 20
+    imported = set(out.stdout.split())
+    assert len(imported) > 20
+    # LM training's modules among them
+    assert {"repro_torch.launch.train", "repro_torch.launch.steps",
+            "repro_torch.optim.sgd", "repro_torch.optim.schedules",
+            "repro_torch.models.transformer",
+            "repro_torch.kernels.rglru_scan.ops"} <= imported

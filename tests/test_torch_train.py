@@ -15,6 +15,7 @@ from ``batch["t"]`` and ``batch["eps"]`` with that package's own
 module attribute, so no file of either package changes.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -131,6 +132,42 @@ def _flat(tree, prefix=""):
     if isinstance(tree, torch.Tensor):
         return {prefix: tree.detach().float().numpy()}
     return {prefix: np.asarray(tree, np.float32)}
+
+
+# The reference's jitted local steps compile with LLVM's expensive passes
+# off: at XLA's backend level 1 a SMOKE sparse step compiles in ~8.5 s
+# instead of ~12 and runs no slower (0.19 s a step against 0.27), which
+# suits the FedPhD runs' steps; at level 0 in ~7.5 s but runs 2x slower,
+# which suits a step run once.
+FAST_COMPILE = {"xla_backend_optimization_level": 1,
+                "xla_llvm_disable_expensive_passes": True}
+O0 = {"xla_backend_optimization_level": 0,
+      "xla_llvm_disable_expensive_passes": True}
+
+
+def _fast_reference_jit(mp, options=FAST_COMPILE):
+    """Every ``jax.jit`` made while ``mp`` is active compiles with
+    ``options`` (the reference builds its steps with ``@jax.jit``), and
+    the reference's aggregations run as one program per tree instead of
+    eagerly (``_jitted_weighted_average``)."""
+    mp.setattr(jax, "jit", functools.partial(jax.jit,
+                                             compiler_options=options))
+    mp.setattr(jagg, "weighted_average", _jitted_weighted_average)
+
+
+@functools.partial(jax.jit, compiler_options=O0)
+def _average_trees(trees, w):
+    return jax.tree.map(lambda *leaves: jagg.combine_leaf(jnp.stack(leaves),
+                                                          w), *trees)
+
+
+def _jitted_weighted_average(param_trees, weights):
+    """The reference's ``weighted_average`` op for op (normalized fp32
+    weights, each leaf stacked and contracted by ``combine_leaf``) in one
+    program: run eagerly it compiles one XLA program per op and leaf
+    shape, ~10 s of the FedPhD run below."""
+    w = np.asarray(jagg.normalize_weights(weights), np.float32)
+    return _average_trees(list(param_trees), jnp.asarray(w))
 
 
 def _max_abs_diff(got, want):
@@ -396,6 +433,7 @@ def test_local_step_with_omega_matches_jax(np_params, runs, monkeypatch,
     monkeypatch.setattr(tmodel, "loss_fn", _port_injected_loss)
     jcfg, tcfg = JCFG.replace(precision=precision), \
         CFG.replace(precision=precision)
+    _fast_reference_jit(monkeypatch, O0)
     jp = _jtree(np_params)
     tp = params_from_jax(np_params, CPU)
     # the reference trainer's own fp32 sparse step: the same cfg, lambda0
@@ -563,6 +601,7 @@ def runs(np_params):
         # through its init, sparing an op-by-op random init it would
         # overwrite
         mp.setattr(jmodel, "init", lambda rng, cfg: _jtree(np_params))
+        _fast_reference_jit(mp)
         ref = JFedPhD(JCFG, JFLConfig(**FL_KW), _clients(jdata, jclient),
                       rng_seed=0, engine="sequential")
         ref_step_sparse = ref.step_sparse
@@ -630,6 +669,7 @@ def test_trainer_random_selection_fedavg_matches_jax(monkeypatch):
     losses within LOSS_RTOL."""
     monkeypatch.setattr(jmodel, "loss_fn", _jax_injected_loss)
     monkeypatch.setattr(tmodel, "loss_fn", _port_injected_loss)
+    _fast_reference_jit(monkeypatch)
     # one U-Net level keeps the reference's compile short
     small = dict(channel_mults=(1,), attn_resolutions=(16,))
     jcfg, cfg = JCFG.replace(**small), CFG.replace(**small)

@@ -3,7 +3,7 @@
 
   python3 tools/chip_phases.py [memory] [baselines] [centralized] [bf16]
                                [faults] [quant] [quantmem] [obs] [sweep]
-                               [check]
+                               [lmtrain] [lmprofile] [lmgrad] [check]
 
 Builds the kernels, then runs the named phases of ``chip_smoke.py`` in
 the order given (default: all): ``memory`` is
@@ -13,11 +13,16 @@ one fp32 vectorized ``train_run`` and ``train_bf16_phase`` against it,
 ``faults`` is ``faults_phase``, ``quant`` is ``quant_phase``,
 ``quantmem`` is ``quant_memory_phase``, ``obs`` is ``obs_phase`` (its
 traces in ``build/chip_phases/obs``), ``sweep`` is ``sweep_phase`` (its
-manifests and reports in ``build/chip_phases/sweep``), and ``check``
-(last) holds
-every matmul, attention and group-L2 shape the phases before it
-launched against the plain versions (``check_matmul``,
-``check_attention``, ``check_group_l2``).  A failed check is printed and
+manifests and reports in ``build/chip_phases/sweep``), ``lmtrain`` is
+``lm_train_phase`` (the CLI's checkpoint in
+``build/chip_phases/lm_train``), ``lmprofile`` the same with one more
+step under ``torch.profiler`` (its table in
+``build/chip_phases/lm_train_profile.txt``), ``lmgrad`` is
+``lm_grad_phase``, and
+``check`` (last) holds every matmul, attention, group-L2 and scan
+(forward and backward) shape the phases before it launched against the
+plain versions (``check_matmul``, ``check_attention``,
+``check_group_l2``, ``check_scan``, ``check_scan_backward``).  A failed check is printed and
 the run goes on to
 the next phase, where ``chip_smoke.py`` stops; the last line lists the
 failures, and the exit code is 1 if there was one.  Needs one CUDA card
@@ -36,7 +41,8 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("memory", "baselines", "centralized", "bf16", "faults", "quant",
-          "quantmem", "obs", "sweep", "check")
+          "quantmem", "obs", "sweep", "lmtrain", "lmprofile", "lmgrad",
+          "check")
 
 
 def main(argv) -> int:
@@ -72,6 +78,8 @@ def main(argv) -> int:
         bmm.block_masked_matmul.dx_shapes.clear()
         gl2.group_l2_norms.bwd_launches = 0
         gl2.group_l2_norms.bwd_shapes.clear()
+        scan.rglru_scan.bwd_launches = 0
+        scan.rglru_scan.bwd_shapes.clear()
 
     fails = []
 
@@ -111,9 +119,16 @@ def main(argv) -> int:
                 cs.merge_tally(tally, cs.sweep_phase(
                     dev, counters, zero,
                     os.path.join(ROOT, "build", "chip_phases", "sweep")))
+            elif phase in ("lmtrain", "lmprofile"):
+                cs.merge_tally(tally, cs.lm_train_phase(
+                    dev, counters, zero,
+                    os.path.join(ROOT, "build", "chip_phases"),
+                    profile=phase == "lmprofile"))
+            elif phase == "lmgrad":
+                cs.lm_grad_phase(dev, counters)
             elif phase == "check" and tally:
-                mm, dx = tally["block_masked_matmul"], \
-                    tally["block_masked_matmul_dx"]
+                mm, dx = tally.get("block_masked_matmul", {}), \
+                    tally.get("block_masked_matmul_dx", {})
                 fwd = [k for k in mm if mm[k] > dx.get(k, 0)]
                 cases = [((k[0], k[1], k[2]), None, k[4], k, role,
                           k[5] if len(k) > 5 else None)
@@ -124,16 +139,32 @@ def main(argv) -> int:
                 rows = []
                 mm_err = cs.check_matmul(cases, gen, dev, rows.append)
                 att = [((k[0], k[1], k[2], k[3]), k[4], k[5], k[6], k)
-                       for k in tally["flash_attention"]]
+                       for k in tally.get("flash_attention", {})]
                 att_err = cs.check_attention(att, gen, dev, rows.append)
                 l2_err = cs.check_group_l2(
                     sorted(tally.get("group_l2_norms", {})), gen, dev,
                     rows.append)
+                scan_cases = [((B, S, W), (0.0, 1.0), dt, k) for k in
+                              tally.get("rglru_scan", {})
+                              for B, S, W, dt in (k,)]
+                scan_err = cs.check_scan(scan_cases, gen, dev, rows.append)
+                bwd = [((B, S, W), (0.0, 1.0), dt, k) for k in
+                       tally.get("rglru_scan_bwd", {}) for B, S, W, dt in (k,)]
+                if bwd:
+                    for dt in ("float32", "bfloat16"):
+                        bwd += [((3, 1000, 999), (0.0, 1.0), dt, None),
+                                ((1, cs.LM_TRAIN_SEQ, 512), (0.999, 1.0),
+                                 dt, None)]
+                cs.check_scan_backward(bwd, gen, dev, rows.append)
                 print(json.dumps({"matmul_cases": len(cases),
                                   "matmul_err": mm_err,
                                   "attention_cases": len(att),
                                   "attention_err": att_err,
-                                  "group_l2_err": l2_err}), flush=True)
+                                  "group_l2_err": l2_err,
+                                  "scan_cases": len(scan_cases),
+                                  "scan_err": scan_err,
+                                  "scan_backward_cases": len(bwd)}),
+                      flush=True)
                 os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
                 with open(os.path.join(ROOT, "chiprun_out",
                                        "phase_cases.jsonl"), "w") as f:
