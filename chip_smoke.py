@@ -84,6 +84,27 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             versions on CPU copies, every leaf within GRAD_TOL of the
             largest plain gradient and each leaf within GRAD_LEAF_TOL
             of its own largest, with the host's memory;
+7j. moe_prefill  the full 48-layer moonshot-v1-16b-a3b (28.4e9 params,
+            64 experts top-6, 2 shared, one dense head layer) in bf16
+            with random weights from the port's init, B = 2, S = 4096:
+            one warm-up and LM_TIMED timed prefills, exactly 48 attention
+            launches each at (BH 32, S 4096, hd 128, causal, bf16), the
+            pairs the capacity dropped, the analytic params and
+            MODEL_FLOPS (``metrics/flops.py``);
+7k. moe_serve  ``serve_requests`` on the same model with LM_SERVE (the
+            loop decodes in place: weights and one KV cache, ~69.7e9 B);
+7l. moe_consistency  moonshot, qwen3-moe-235b-a22b (GQA 64/4) and
+            deepseek-v3-671b (MLA; 3 dense head layers and one MoE layer)
+            at full width cut to 4 layers, fp32, one at a time: the
+            prefill's last logits against decode after the same 8 tokens
+            (no pair can drop at T <= 8), within LM_TOL, 0 pairs dropped;
+            MLA attends in plain ops (prefill) and in the absorbed form
+            (decode), as the reference does;
+7m. moe_train  ``build_train_step`` on moonshot cut to 4 layers (the
+            dense head layer and 3 MoE layers), bf16 over an fp32 master,
+            remat, B = 1, S = 4096: finite falling losses, aux above 0,
+            exactly 7 attention launches a step (the head once, each
+            cycle twice), params their master's cast;
 7b. experiment  ``repro_torch.experiment.runner.main`` in process with
             ``--preset paper --eval-every 1``: full-width CIFAR10_UNET,
             20 clients of 256 cifar10-like images (2 classes each), 2
@@ -296,11 +317,24 @@ GRAD_LEAF_FLOOR = 1e-2
 LM_TOL = 1e-4
 SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
 LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency", "lm_train")
+# phases 7j-7m: moonshot at full width and depth (prefill, serving), each
+# MoE/MLA config at full width cut to MOE_DEPTH layers in fp32 (prefill
+# against decode), moonshot's train step at MOE_TRAIN_DEPTH layers
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_CONSISTENCY = (("moonshot", "moonshot-v1-16b-a3b", 4),
+                   ("qwen3", "qwen3-moe-235b-a22b", 4),
+                   ("deepseek", "deepseek-v3-671b", 4))
+MOE_CONSISTENCY_SEQ = 8          # T <= 8 tokens cannot drop a pair
+MOE_TRAIN_DEPTH = 4              # the dense head layer and 3 MoE layers
+MOE_PATHS = ("moe_prefill", "moe_serve") + tuple(
+    f"moe_consistency_{label}" for label, _, _ in MOE_CONSISTENCY) + (
+    "moe_train",)
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
 BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "experiment", "baselines",
                                 "faults", "quant", "sweep")
-PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + BACKWARD_PATHS[2:]
+PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + MOE_PATHS \
+    + BACKWARD_PATHS[2:]
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
               "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
 TRAIN_BATCH = 32
@@ -1008,13 +1042,16 @@ def lm_prefill_phase(cfg, params, dev, counters, zero_counters):
     return tally
 
 
-def lm_serve_phase(cfg, params, dev, counters, zero_counters):
+def lm_serve_phase(cfg, params, dev, counters, zero_counters,
+                   phase="lm_serve"):
     """``serve_requests`` with LM_SERVE; returns the run's tallies (all
-    empty: the decode step launches no kernel of the port)."""
+    empty: the decode step launches no kernel of the port).  ``phase``
+    names the line and the checks."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import serve_requests
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
     res = serve_requests(params, cfg, seed=0, **LM_SERVE)
@@ -1024,7 +1061,7 @@ def lm_serve_phase(cfg, params, dev, counters, zero_counters):
     steps = np.asarray(res["step_seconds"])
     outs = res["outputs"]
     toks = [t for rid in sorted(outs) for t in outs[rid]]
-    emit("lm_serve", model=cfg.name, **LM_SERVE, steps=len(steps),
+    emit(phase, model=cfg.name, **LM_SERVE, steps=len(steps),
          generated=res["generated"], seconds=res["seconds"],
          tok_per_s=res["tok_per_s"],
          first_step_ms=float(steps[0] * 1e3),
@@ -1036,12 +1073,12 @@ def lm_serve_phase(cfg, params, dev, counters, zero_counters):
     require(sorted(outs) == list(range(LM_SERVE["requests"]))
             and all(len(v) == LM_SERVE["max_tokens"] for v in outs.values())
             and len(toks) == want,
-            f"lm_serve: {len(toks)} tokens over {len(outs)} requests, want "
+            f"{phase}: {len(toks)} tokens over {len(outs)} requests, want "
             f"{want}")
     require(all(0 <= t < cfg.vocab_size for t in toks),
-            "lm_serve: a token outside [0, vocab)")
+            f"{phase}: a token outside [0, vocab)")
     require(not any(launches.values()),
-            f"lm_serve: the decode loop launched a kernel: {launches}")
+            f"{phase}: the decode loop launched a kernel: {launches}")
     return tally
 
 
@@ -1324,6 +1361,285 @@ def lm_grad_phase(dev, counters):
             f"max|plain| off (limit {GRAD_LEAF_TOL})")
     del grads, want, cparams
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 7j-7m: the MoE and MLA decoders
+# ---------------------------------------------------------------------------
+
+def flash_key(cfg, batch, seq, dtype):
+    """The attention kernel's tally key for a decoder's causal global
+    layers: GQA heads are expanded before the launch."""
+    return (batch * cfg.num_heads, seq, seq, cfg.head_dim, True, 0, dtype)
+
+
+def moe_prefill_phase(cfg, params, dev, counters, zero_counters):
+    """Full-width, full-depth MoE prefill: one warm-up and LM_TIMED timed
+    prefills of B = 2, S = 4096; exactly one attention launch a layer,
+    at the key :func:`flash_key` gives; the pairs the capacity dropped.
+    Returns the run's tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.metrics import flops
+    from repro_torch.models import moe
+
+    step = build_prefill_step(cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (LM_BATCH, LM_SEQ))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    moe.apply_moe.dropped = 0
+    times = []
+    for _ in range(1 + LM_TIMED):
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    runs = 1 + LM_TIMED
+    dropped = int(moe.apply_moe.dropped)
+    m = cfg.moe
+    n_moe = cfg.num_layers - m.first_dense_layers
+    tokens = LM_BATCH * LM_SEQ
+    med = float(np.median(times[1:]))
+    work = flops.model_flops(cfg, InputShape("moe_prefill", LM_SEQ,
+                                             LM_BATCH, "prefill"))
+    finite = bool(torch.isfinite(logits).all())
+    key = flash_key(cfg, LM_BATCH, LM_SEQ, cfg.dtype)
+    emit("moe_prefill", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, batch=LM_BATCH, seq=LM_SEQ, cut="none",
+         params=flops.count_params_analytic(cfg),
+         active_params=flops.active_params(cfg),
+         param_bytes=tensor_bytes(params), model_flops=work,
+         warmup_ms=times[0] * 1e3, prefill_ms=[t * 1e3 for t in times[1:]],
+         prefill_ms_median=med * 1e3, tokens_per_s=tokens / med,
+         model_tflops_per_s=work / med / 1e12,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+         capacity=moe.capacity(tokens, m.experts_per_token, m.num_experts,
+                               m.capacity_factor),
+         pairs_per_prefill=n_moe * tokens * m.experts_per_token,
+         pairs_dropped_per_prefill=dropped / runs, prefills=runs,
+         launches=launches, flash_shapes={str(k): v for k, v in
+                                          tally["flash_attention"].items()},
+         logits_shape=list(logits.shape), finite=finite,
+         max_abs_logit=float(logits.float().abs().max()))
+    require(tally["flash_attention"] == {key: cfg.num_layers * runs},
+            f"moe_prefill: attention launches {tally['flash_attention']} "
+            f"over {runs} prefills, want {cfg.num_layers} a prefill at "
+            f"{key}")
+    require(launches["block_masked_matmul"] == 0
+            and launches["group_l2_norms"] == 0
+            and launches["rglru_scan"] == 0,
+            f"moe_prefill: another kernel was launched: {launches}")
+    require(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and finite,
+            f"moe_prefill: logits {tuple(logits.shape)}, finite={finite}")
+    return tally
+
+
+def moe_consistency_phase(label, arch, depth, dev, counters, zero_counters):
+    """``arch`` at full width cut to ``depth`` layers, fp32 (TF32 off):
+    the prefill's last logits over MOE_CONSISTENCY_SEQ tokens (at most 8:
+    the capacity is at least 8, so no pair can drop) against the decode
+    logits after the same tokens one by one, within LM_TOL of
+    max|logit|; no pair dropped, one attention launch a non-MLA layer
+    (MLA attends in plain ops), none while decoding.  Returns the
+    prefill's tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.metrics import flops
+    from repro_torch.models import model, moe
+
+    full = get_config(arch)
+    cfg = full.replace(num_layers=depth, dtype="float32",
+                       param_dtype="float32")
+    gen = torch.Generator(dev)
+    gen.manual_seed(5)
+    t0 = time.perf_counter()
+    params = model.init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    seq = MOE_CONSISTENCY_SEQ
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, seq))).to(dev)
+    zero_counters()
+    moe.apply_moe.dropped = 0
+    t0 = time.perf_counter()
+    pre = build_prefill_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    dropped_prefill = int(moe.apply_moe.dropped)
+    cache = model.init_cache(params, cfg, 1, seq)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(seq):
+            dec, cache = model.decode(params, cache, cfg, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    after = {k: fn.launches for k, fn in counters.items()}
+    dropped = int(moe.apply_moe.dropped)
+    dec = dec[:, 0]
+    err = float((pre - dec).abs().max())
+    scale = float(dec.abs().max())
+    want = {} if cfg.mla else {flash_key(cfg, 1, seq, "float32"): depth}
+    emit("moe_consistency", model=arch, label=label, layers=depth,
+         cut=f"depth {full.num_layers} -> {depth}", dtype="float32",
+         params=flops.count_params_analytic(cfg),
+         param_bytes=tensor_bytes(params), init_s=init_s, seq=seq,
+         attention="mla (plain attend; absorbed decode)" if cfg.mla
+         else f"flash (heads {cfg.num_heads}, kv {cfg.num_kv_heads})",
+         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3
+         / seq, max_abs_err=err, max_abs_logit=scale, tol=LM_TOL * scale,
+         same_argmax=bool(torch.equal(pre.argmax(-1), dec.argmax(-1))),
+         pairs_dropped_prefill=dropped_prefill,
+         pairs_dropped=dropped, prefill_launches=launches,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    require(tally["flash_attention"] == want,
+            f"moe_consistency {label}: attention launches "
+            f"{tally['flash_attention']}, want {want}")
+    require(after == launches,
+            f"moe_consistency {label}: decode launched a kernel: {after}")
+    require(dropped == 0, f"moe_consistency {label}: {dropped} pairs "
+                          f"dropped, want 0")
+    require(bool(torch.isfinite(pre).all()) and scale > 0
+            and err <= LM_TOL * scale,
+            f"moe_consistency {label}: prefill vs decode logits err {err} "
+            f"> {LM_TOL} x {scale}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return tally
+
+
+def moe_train_phase(dev, counters, zero_counters):
+    """``build_opt_init`` and LM_TRAIN_WARMUP + LM_TIMED steps of
+    ``build_train_step`` on the same batch: full-width MOE_ARCH cut to
+    MOE_TRAIN_DEPTH layers (its dense head layer and 3 MoE layers), bf16
+    params over an fp32 master, fp32 moments, remat on, B = 1,
+    S = LM_TRAIN_SEQ, lr LM_TRAIN_LR: finite, falling losses, the aux
+    loss above 0 (one more forward after the steps), exactly one
+    attention launch a step for the head layer and two for each cycle
+    (remat recomputes the cycles, not the head), every bf16 param its
+    master's cast bitwise, the peak below the card's memory.  Returns
+    the steps' tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_opt_init, build_train_step
+    from repro_torch.metrics import flops
+    from repro_torch.models import model, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_TRAIN_DEPTH)
+    plan = tfm.stack_plan(cfg)
+    gen = torch.Generator(dev)
+    gen.manual_seed(6)
+    params = model.init(cfg, gen, device=dev)
+    opt = build_opt_init(cfg)(params)
+    n = sum(p.numel() for p in tree_leaves(params))
+    resident = tensor_bytes(params) + tensor_bytes(opt)
+    batch = lm_train_batch(cfg, dev, LM_TRAIN_SEQ, 7)
+    step = build_train_step(cfg, lr=LM_TRAIN_LR)
+    runs = LM_TRAIN_WARMUP + LM_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    moe.apply_moe.dropped = 0
+    times, losses = [], []
+    for i in range(runs):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    dropped = int(moe.apply_moe.dropped)
+    losses = [float(x) for x in losses]
+    with torch.no_grad():
+        _, aux = tfm.forward(params, cfg, batch)
+    aux = float(aux)
+    master_cast = all(torch.equal(p, m.to(p.dtype)) for p, m in
+                      zip(tree_leaves(params), tree_leaves(opt.master)))
+    med = float(np.median(times[LM_TRAIN_WARMUP:]))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    per_step = plan.n_head + 2 * plan.n_cycles * len(plan.pattern)
+    key = flash_key(cfg, 1, LM_TRAIN_SEQ, cfg.dtype)
+    emit("moe_train", model=cfg.name, layers=cfg.num_layers,
+         cut=f"depth 48 -> {MOE_TRAIN_DEPTH}", params=n,
+         params_analytic=flops.count_params_analytic(cfg),
+         dtype=cfg.dtype, param_dtype=cfg.param_dtype, master="float32",
+         moments="float32", remat=True, batch=1, seq=LM_TRAIN_SEQ,
+         lr=LM_TRAIN_LR, losses=losses, aux_after=aux,
+         warmup_ms=times[0] * 1e3,
+         step_ms=[t * 1e3 for t in times[LM_TRAIN_WARMUP:]],
+         step_ms_p50=med * 1e3, tokens_per_s=LM_TRAIN_SEQ / med,
+         peak_mem_bytes=peak, card_mem_bytes=total, state_bytes=resident,
+         state_with_grads_estimate_bytes=LM_BYTES_PER_PARAM * n,
+         pairs_dropped=dropped, launches=launches,
+         launches_want={"flash_attention": per_step * runs},
+         params_are_master_cast=master_cast)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"moe_train: losses {losses} are not finite and falling")
+    require(np.isfinite(aux) and aux > 0, f"moe_train: aux {aux}, want > 0")
+    require(tally["flash_attention"] == {key: per_step * runs},
+            f"moe_train: attention launches {tally['flash_attention']}, "
+            f"want {per_step * runs} at {key}")
+    require(launches["block_masked_matmul"] == 0
+            and launches["group_l2_norms"] == 0
+            and launches["rglru_scan"] == 0,
+            f"moe_train: another kernel was launched: {launches}")
+    require(master_cast, "moe_train: a bf16 param is not its master's cast")
+    require(peak < total, f"moe_train: peak {peak} >= the card's {total}")
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    return tally
+
+
+def moe_phases(dev, counters, zero_counters, profile_dir=None):
+    """Phases 7j-7m in order, each model freed before the next; returns
+    path -> tallies.  With ``profile_dir``, one more prefill and
+    LM_PROFILE_STEPS decode steps of moonshot under ``torch.profiler``
+    after moe_serve (:func:`lm_profile_phase`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    tallies = {}
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    emit("moe_init", model=cfg.name, seconds=time.perf_counter() - t0,
+         param_bytes=tensor_bytes(params),
+         allocated_bytes=torch.cuda.memory_allocated(dev))
+    tallies["moe_prefill"] = moe_prefill_phase(cfg, params, dev, counters,
+                                               zero_counters)
+    torch.cuda.empty_cache()
+    tallies["moe_serve"] = lm_serve_phase(cfg, params, dev, counters,
+                                          zero_counters, phase="moe_serve")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        lm_profile_phase(cfg, params, dev, profile_dir, name="moe")
+    del params
+    torch.cuda.empty_cache()
+    for label, arch, depth in MOE_CONSISTENCY:
+        tallies[f"moe_consistency_{label}"] = moe_consistency_phase(
+            label, arch, depth, dev, counters, zero_counters)
+    tallies["moe_train"] = moe_train_phase(dev, counters, zero_counters)
+    return tallies
 
 
 # ---------------------------------------------------------------------------
@@ -3459,22 +3775,24 @@ def profile_phase(cfg, dev, out_dir):
              **summary)
 
 
-def lm_profile_phase(cfg, params, dev, out_dir):
-    """``--profile``: one more prefill as in lm_prefill, and
-    LM_PROFILE_STEPS decode steps at 8 slots against a fresh cache of
-    cache_len 4096, each under ``torch.profiler`` (:func:`profiled`)."""
+def lm_profile_phase(cfg, params, dev, out_dir, name="lm"):
+    """``--profile``: one more prefill as in lm_prefill (moe_prefill for
+    ``name`` "moe"), and LM_PROFILE_STEPS decode steps at 8 slots
+    against a fresh cache of cache_len 4096, written in place as
+    ``serve_requests`` writes it, each under ``torch.profiler``
+    (:func:`profiled`)."""
     import numpy as np
     import torch
-    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import model
 
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).to(dev)
     prefill = build_prefill_step(cfg)
-    emit("profile", run="lm_prefill, profiled", batch=LM_BATCH, seq=LM_SEQ,
-         **profiled(lambda: prefill(params, {"tokens": toks}),
-                    os.path.join(out_dir, "lm_prefill_profile.txt")))
-    serve = build_serve_step(cfg)
+    emit("profile", run=f"{name}_prefill, profiled", batch=LM_BATCH,
+         seq=LM_SEQ, **profiled(lambda: prefill(params, {"tokens": toks}),
+                                os.path.join(out_dir,
+                                             f"{name}_prefill_profile.txt")))
     slots = LM_SERVE["slots"]
     state = {"cache": model.init_cache(params, cfg, slots,
                                        LM_SERVE["cache_len"]),
@@ -3483,13 +3801,16 @@ def lm_profile_phase(cfg, params, dev, out_dir):
 
     def steps():
         for _ in range(LM_PROFILE_STEPS):
-            state["toks"], state["cache"] = serve(params, state["cache"],
-                                                  state["toks"])
+            with torch.no_grad():           # serve_requests' step
+                state["toks"] = model.decode_(
+                    params, state["cache"], cfg, state["toks"]).argmax(
+                    dim=-1).to(torch.int32)
             state["toks"].cpu()          # the serving loop's host sync
     steps()                              # the first step's one-off costs
-    emit("profile", run="lm_serve decode steps, profiled", slots=slots,
-         steps=LM_PROFILE_STEPS,
-         **profiled(steps, os.path.join(out_dir, "lm_decode_profile.txt")))
+    emit("profile", run=f"{name}_serve decode steps, profiled",
+         slots=slots, steps=LM_PROFILE_STEPS,
+         **profiled(steps, os.path.join(out_dir,
+                                        f"{name}_decode_profile.txt")))
 
 
 # ---------------------------------------------------------------------------
@@ -3787,6 +4108,11 @@ def run(out_dir: str, profile: bool = False) -> dict:
     tallies["lm_train"] = lm_train_phase(dev, counters, zero_counters,
                                          out_dir, profile=profile)
     lm_grad_phase(dev, counters)
+
+    # -- 7j-7m. the MoE and MLA decoders: moonshot at full depth, prefill
+    # and serving; each config's prefill against decode; moonshot training
+    tallies.update(moe_phases(dev, counters, zero_counters,
+                              profile_dir=out_dir if profile else None))
 
     # -- 4b. the experiment API: the paper preset, run and resumed ---------
     tallies["experiment"] = experiment_phase(dev, counters, zero_counters)

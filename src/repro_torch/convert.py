@@ -1,7 +1,9 @@
 """Carry weights and masks between the JAX package and the port.
 
 Both packages hold U-Net and decoder parameters as the same nested tree
-of dicts and lists.  The JAX side hands it over as numpy leaves
+of dicts and lists (a decoder's unstacked ``head`` layers, its
+``cycles`` stacked on a first axis, so an MoE layer's expert weights
+are (n_cycles, E, d, d_expert) leaves, and its ``tail``).  The JAX side hands it over as numpy leaves
 (``jax.tree.map(np.asarray, params)``); :func:`params_from_jax` puts
 each leaf on a torch device unchanged, and :func:`params_to_jax` returns
 numpy leaves the JAX package accepts.  :func:`state_dict` flattens a

@@ -5,12 +5,17 @@ A batch of independent request slots shares one serve step; a finished
 request (max tokens) hands its slot to the next queued one.  Each
 request's seed token is a function of its request id only, drawn from
 the same numpy stream as the reference's, and a refilled slot's cache
-rows are blended back to fresh state (``model.reset_cache_slots``)
-before its first step, so a request's output does not depend on the
-slot that serves it or on what ran there before.
+rows are set back to fresh state (``model.reset_cache_slots_``) before
+its first step, so a request's output does not depend on the slot that
+serves it or on what ran there before.  The loop owns its cache and
+decodes into it in place (``model.decode_``), and its fresh state is a
+one-slot cache: the cache is held once (a full-width MoE model's KV
+cache does not fit twice beside its weights).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
-  (on the reference's smoke variant; ``--device cpu`` without a card)
+  (on the reference's smoke variant; ``--arch`` also moonshot-v1-16b-a3b,
+  qwen3-moe-235b-a22b or deepseek-v3-671b; ``--device cpu`` without a
+  card)
 """
 from __future__ import annotations
 
@@ -23,7 +28,6 @@ import torch
 
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import build_serve_step
 from repro_torch.models import model
 
 
@@ -42,9 +46,8 @@ def serve_requests(params, cfg, *, slots: int, requests: int,
     decode step, ending at the host copy of its tokens (which waits for
     the device)."""
     device = params["embed"].device
-    serve = build_serve_step(cfg)
-    fresh = model.init_cache(params, cfg, slots, cache_len)
-    cache = fresh
+    fresh = model.init_cache(params, cfg, 1, cache_len)
+    cache = model.init_cache(params, cfg, slots, cache_len)
 
     slot_req: List[Optional[int]] = [r if r < requests else None
                                      for r in range(slots)]
@@ -60,7 +63,9 @@ def serve_requests(params, cfg, *, slots: int, requests: int,
     generated = 0
     while done < requests:
         ts = time.perf_counter()
-        toks, cache = serve(params, cache, toks)
+        with torch.no_grad():
+            toks = model.decode_(params, cache, cfg, toks).argmax(
+                dim=-1).to(torch.int32)
         host = toks.cpu().numpy()
         step_seconds.append(time.perf_counter() - ts)
         generated += slots
@@ -83,8 +88,7 @@ def serve_requests(params, cfg, *, slots: int, requests: int,
                 new_toks[s] = seed_token(cfg, seed, nxt) \
                     if nxt is not None else 0
         if reset.any():
-            cache = model.reset_cache_slots(
-                cache, fresh, torch.from_numpy(reset).to(device))
+            model.reset_cache_slots_(cache, fresh, torch.from_numpy(reset))
             toks = torch.from_numpy(new_toks.astype(np.int32)).to(
                 device)[:, None]
     dt = time.perf_counter() - t0

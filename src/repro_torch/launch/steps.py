@@ -70,7 +70,9 @@ def build_prefill_step(cfg: ModelConfig):
 
 def build_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, tokens) -> (next_tokens (B, 1) int32,
-    new cache): one greedy token against the decode cache."""
+    new cache): one greedy token against the decode cache, which is left
+    as it was (``serve_requests`` decodes into a cache it owns
+    instead)."""
     @torch.no_grad()
     def serve_step(params, cache, tokens):
         logits, new_cache = model.decode(params, cache, cfg, tokens)

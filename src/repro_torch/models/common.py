@@ -21,8 +21,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 def normal(generator: torch.Generator, shape, std: float, dtype,
            device) -> torch.Tensor:
-    return (torch.randn(shape, generator=generator, device=device)
-            * std).to(dtype)
+    # scaled in place: a full-width fp32 expert leaf (15 GB for
+    # deepseek-v3) is held once, not twice
+    return torch.randn(shape, generator=generator,
+                       device=device).mul_(std).to(dtype)
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,

@@ -1,8 +1,10 @@
 """Model interface (``repro/models/model.py``): ``init`` and
 ``loss_fn`` dispatch on ``cfg.arch_type`` (the U-Net's DDPM loss, the
-decoder's chunked cross-entropy); the decoder serves through
-``prefill``, ``init_cache``, ``decode`` and ``reset_cache_slots``;
-``input_specs`` and ``make_inputs`` give a shape's inputs."""
+decoder's chunked cross-entropy plus its MoE aux loss); the decoder
+serves through ``prefill``, ``init_cache``, ``decode`` and
+``reset_cache_slots`` (and ``decode_`` and ``reset_cache_slots_``,
+which write into the cache they are given); ``input_specs`` and
+``make_inputs`` give a shape's inputs."""
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -40,12 +42,14 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
     A decoder's loss is :func:`transformer.chunked_xent` of
     ``batch["tokens"]`` against ``batch["labels"]`` (-1 ignored), with
-    ``remat`` (the reference's default ``ApplyOptions.remat=True``); its
-    aux term is 0 until MoE layers are ported (ROADMAP A.13)."""
+    ``remat`` (the reference's default ``ApplyOptions.remat=True``), plus
+    the MoE layers' load-balance aux loss (0 without MoE layers).  RWKV,
+    encoder-decoder and VLM models, attention soft-capping and parallel
+    blocks are not ported yet (ROADMAP A.13) and raise."""
     if cfg.arch_type != "unet":
-        hidden = tfm.forward(params, cfg, batch, remat=remat)
+        hidden, aux = tfm.forward(params, cfg, batch, remat=remat)
         return tfm.chunked_xent(params, cfg, hidden, batch["labels"],
-                                remat=remat)
+                                remat=remat) + aux
     x0 = batch["images"]
     schedule = linear_schedule(cfg.diffusion_steps, device=x0.device)
     return ddpm_loss(lambda x_t, tt: apply_unet(params, cfg, x_t, tt,
@@ -57,7 +61,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def prefill(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence forward; the last position's logits (B, V)."""
-    hidden = tfm.forward(params, cfg, batch)
+    hidden, _ = tfm.forward(params, cfg, batch)
     return tfm.logits_from_hidden(params, cfg, hidden[:, -1:, :])[:, 0, :]
 
 
@@ -66,13 +70,26 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int, seq_len: int):
 
 
 def decode(params: Params, cache, cfg: ModelConfig, tokens: torch.Tensor):
+    """(logits, new cache); ``cache`` is left as it was."""
     return tfm.decode_step(params, cache, cfg, tokens)
+
+
+def decode_(params: Params, cache, cfg: ModelConfig,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Logits of one decode step that writes into ``cache`` in place."""
+    return tfm.decode_step_(params, cache, cfg, tokens)
 
 
 def reset_cache_slots(cache, fresh, reset: torch.Tensor):
     """Per-slot cache reset for continuous-batching refill (see
     :func:`repro_torch.models.transformer.reset_cache_slots`)."""
     return tfm.reset_cache_slots(cache, fresh, reset)
+
+
+def reset_cache_slots_(cache, fresh, reset: torch.Tensor):
+    """:func:`reset_cache_slots` written into ``cache`` in place; ``fresh``
+    may hold one slot."""
+    return tfm.reset_cache_slots_(cache, fresh, reset)
 
 
 class InputSpec(NamedTuple):

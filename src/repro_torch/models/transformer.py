@@ -1,34 +1,40 @@
-"""Decoder stack (``repro/models/transformer.py``), the subset
-RecurrentGemma runs: global and local attention layers and RG-LRU
-recurrent layers, each with a dense FFN; the full-sequence forward
+"""Decoder stack (``repro/models/transformer.py``), the subset the
+port's decoder LMs run: global and local attention layers, DeepSeek's
+multi-head latent attention (MLA) and RG-LRU recurrent layers, each with
+a dense FFN or a mixture of experts (MoE); the full-sequence forward
 (prefill, and training with ``remat``), the chunked cross-entropy, and
 single-token decode with per-kind caches (ring-buffer KV for windowed
-attention, full KV for global attention, O(1) state for RG-LRU).
+attention, full KV for global attention, the latent cache for MLA,
+O(1) state for RG-LRU).
 
 Parameters are the reference's tree: ``head`` (unstacked leading
-layers), ``cycles`` (one tree per position in the layer pattern, each
-leaf stacked over the pattern's repetitions on its first axis) and
-``tail`` (the pattern's remainder), so :mod:`repro_torch.convert`
-carries weights across unchanged.  The reference scans the cycles with
-``lax.scan``; here a Python loop walks the stacked leaves' first axis.
+layers: an MoE model's dense-FFN layers), ``cycles`` (one tree per
+position in the layer pattern, each leaf stacked over the pattern's
+repetitions on its first axis) and ``tail`` (the pattern's remainder),
+so :mod:`repro_torch.convert` carries weights across unchanged.  The
+reference scans the cycles with ``lax.scan``; here a Python loop walks
+the stacked leaves' first axis.
 
 On a CUDA tensor the forward's recurrences launch the scan kernel (and
-their gradients its backward kernel) and its attention the attention
-kernel (``models/ops.py:attention``, as the reference's Pallas route,
-with the reference's dense recompute backward); the dense projections
-are plain ``@``, as the reference leaves them to XLA outside any
-kernel, and the decode step is plain tensor ops, as the reference's is.
-``remat`` is the reference's ``ApplyOptions.remat``: each pattern cycle
-and each cross-entropy chunk runs under ``torch.utils.checkpoint``, so
-the backward recomputes it (its kernels launch again) instead of
-holding its activations.  MoE, MLA, RWKV and
-encoder-decoder or VLM models raise ``NotImplementedError`` (ROADMAP
-A.13).
+their gradients its backward kernel) and its causal GQA/MHA attention
+the attention kernel (``models/ops.py:attention``, as the reference's
+Pallas route, with the reference's dense recompute backward); MLA
+attends in plain ops (``models/mla.py``), as the reference's does; the
+dense projections and the expert products are plain ``@`` and ``bmm``,
+as the reference leaves them to XLA outside any kernel, and the decode
+step is plain tensor ops, as the reference's is.  ``remat`` is the
+reference's ``ApplyOptions.remat``: each pattern cycle and each
+cross-entropy chunk runs under ``torch.utils.checkpoint``, so the
+backward recomputes it (its kernels launch again) instead of holding
+its activations; the head layers are not recomputed, as in the
+reference.  RWKV, encoder-decoder and VLM models, attention
+soft-capping (gemma2) and ``parallel_block`` (command-r) raise
+``NotImplementedError`` (ROADMAP A.13).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -37,6 +43,8 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
                                       ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ops
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
@@ -47,21 +55,28 @@ from repro_torch.tree import tree_map
 Params = Dict[str, Any]
 INT_MAX = torch.iinfo(torch.int32).max
 _ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
+# the reference's ApplyOptions.attn_chunk: MLA's q-block size
+ATTN_CHUNK = 1024
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.arch_type != "decoder":
-        raise NotImplementedError(f"{cfg.name!r} is {cfg.arch_type!r}; the "
-                                  f"port's decoder stack runs decoder-only "
-                                  f"LMs (ROADMAP A.13)")
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name!r}: MoE and MLA layers are not "
+        raise NotImplementedError(f"{cfg.name!r} is {cfg.arch_type!r}: "
+                                  f"encoder-decoder and VLM models are not "
                                   f"ported yet (ROADMAP A.13)")
     bad = set(cfg.layer_pattern) - {ATTN_GLOBAL, ATTN_LOCAL, RECURRENT}
     if bad:
         raise NotImplementedError(f"{cfg.name!r}: layer kinds {sorted(bad)} "
                                   f"(RWKV) are not ported yet (ROADMAP "
                                   f"A.13)")
+    if cfg.attn_softcap != 0.0:
+        raise NotImplementedError(f"{cfg.name!r}: attention soft-capping "
+                                  f"(gemma2) is not ported yet (ROADMAP "
+                                  f"A.13)")
+    if cfg.parallel_block:
+        raise NotImplementedError(f"{cfg.name!r}: parallel attention and "
+                                  f"FFN blocks (command-r) are not ported "
+                                  f"yet (ROADMAP A.13)")
 
 
 # ===========================================================================
@@ -69,8 +84,7 @@ def _require_ported(cfg: ModelConfig) -> None:
 # ===========================================================================
 @dataclasses.dataclass(frozen=True)
 class StackPlan:
-    """The reference's plan without its leading ``head`` layers, which
-    only MoE models have (their trees keep an empty ``head`` list)."""
+    n_head: int                 # leading unstacked layers (dense-FFN for MoE)
     n_cycles: int               # repetitions of the pattern
     pattern: Tuple[int, ...]
     tail_kinds: Tuple[int, ...]
@@ -78,20 +92,39 @@ class StackPlan:
 
 def stack_plan(cfg: ModelConfig) -> StackPlan:
     _require_ported(cfg)
+    n_head = cfg.moe.first_dense_layers if cfg.moe else 0
+    if n_head and len(cfg.layer_pattern) != 1:
+        raise ValueError("head layers need a uniform layer pattern")
+    rem = cfg.num_layers - n_head
     plen = len(cfg.layer_pattern)
-    return StackPlan(n_cycles=cfg.num_layers // plen,
+    return StackPlan(n_head=n_head, n_cycles=rem // plen,
                      pattern=cfg.layer_pattern,
-                     tail_kinds=cfg.layer_pattern[: cfg.num_layers % plen])
+                     tail_kinds=cfg.layer_pattern[: rem % plen])
 
 
-def _stack(trees):
-    """One tree whose leaves stack the trees' leaves on a new first axis."""
-    return tree_map(lambda *ls: torch.stack(ls), *trees)
+def _stacked(make: Callable[[], Any], n: int):
+    """One tree whose leaves stack ``n`` trees from ``make()`` on a new
+    first axis, in call order.  Each tree is copied into its row and
+    dropped, so at most one more tree than the result is alive (a full
+    model's stacked expert leaves would not fit twice); one tree is
+    viewed with a new axis, not copied."""
+    first = make()
+    if n == 1:
+        return tree_map(lambda t: t[None], first)
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for c in range(n):
+        tree_map(lambda o, t: o[c].copy_(t), out, first if c == 0
+                 else make())
+    return out
 
 
 def _cycle(stacked, c: int):
-    """Cycle ``c``'s tree out of a stacked one."""
+    """Cycle ``c``'s tree out of a stacked one (views)."""
     return tree_map(lambda t: t[c], stacked)
+
+
+def _layer_is_moe(cfg: ModelConfig, kind: int) -> bool:
+    return cfg.moe is not None and kind in _ATTN
 
 
 # ===========================================================================
@@ -121,10 +154,13 @@ def init_attn_params(generator: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: int, *,
-               dtype=torch.float32, device="cpu") -> Params:
+               is_moe: bool, dtype=torch.float32, device="cpu") -> Params:
     d = cfg.d_model
     p: Params = {"ln1": torch.zeros((d,), dtype=dtype, device=device)}
-    if kind in _ATTN:
+    if kind in _ATTN and cfg.mla is not None:
+        p["mla"] = mla_lib.init_mla(generator, d, cfg.num_heads, cfg.mla,
+                                    dtype, device)
+    elif kind in _ATTN:
         p["attn"] = init_attn_params(generator, cfg, dtype, device)
     elif kind == RECURRENT:
         p["rec"] = rglru_lib.init_rglru(generator, d, cfg.lru_width,
@@ -133,16 +169,22 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: int, *,
         raise NotImplementedError(f"layer kind {kind} is not ported yet "
                                   f"(ROADMAP A.13)")
     p["ln2"] = torch.zeros((d,), dtype=dtype, device=device)
-    p["ffn"] = init_ffn(generator, d, cfg.d_ff, glu=cfg.glu,
-                        bias=cfg.use_ffn_bias, dtype=dtype, device=device)
+    if is_moe:
+        p["moe"] = moe_lib.init_moe(generator, d, cfg.moe, dtype=dtype,
+                                    device=device)
+    else:
+        p["ffn"] = init_ffn(generator, d, cfg.d_ff, glu=cfg.glu,
+                            bias=cfg.use_ffn_bias, dtype=dtype,
+                            device=device)
     return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random parameters with the reference's tree, shapes, dtypes and
-    scales (``param_dtype``; ``log_lambda`` fp32), drawn from
-    ``generator`` (which must live on ``device``)."""
+    scales (``param_dtype``; ``log_lambda`` and the MoE router fp32),
+    drawn from ``generator`` (which must live on ``device``): the head
+    layers, then each pattern position's cycles, then the tail."""
     dtype = dtype_of(cfg.param_dtype)
     plan = stack_plan(cfg)
     kw = dict(dtype=dtype, device=resolve_device(device))
@@ -153,12 +195,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model,
                                        cfg.vocab_size, **kw)
-    params["head"] = []
+    # head layers: always dense-FFN
+    params["head"] = [init_layer(generator, cfg, cfg.layer_pattern[0],
+                                 is_moe=False, **kw)
+                      for _ in range(plan.n_head)]
     params["cycles"] = [
-        _stack([init_layer(generator, cfg, kind, **kw)
-                for _ in range(plan.n_cycles)]) if plan.n_cycles else None
+        _stacked(lambda kind=kind: init_layer(
+            generator, cfg, kind, is_moe=_layer_is_moe(cfg, kind), **kw),
+            plan.n_cycles) if plan.n_cycles else None
         for kind in plan.pattern]
-    params["tail"] = [init_layer(generator, cfg, kind, **kw)
+    params["tail"] = [init_layer(generator, cfg, kind,
+                                 is_moe=_layer_is_moe(cfg, kind), **kw)
                       for kind in plan.tail_kinds]
     return params
 
@@ -187,9 +234,6 @@ def _self_attention(ap, h: torch.Tensor, positions: torch.Tensor,
     """Causal self-attention over the whole sequence on the attention
     kernel (GQA expanded in ``ops.attention``), as the reference's
     Pallas route runs it."""
-    if cfg.attn_softcap != 0.0:
-        raise NotImplementedError("attention soft-capping (gemma2) is not "
-                                  "ported yet (ROADMAP A.13)")
     q, k, v = _qkv(ap, h, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -200,28 +244,39 @@ def _self_attention(ap, h: torch.Tensor, positions: torch.Tensor,
 
 def _cast_layer(lp, dtype):
     """A layer's floating-point params in the activation dtype (cast at
-    use, as the reference does)."""
+    use, as the reference does; the fp32 MoE router too)."""
     return tree_map(lambda a: a.to(dtype) if a.is_floating_point()
                     and a.dtype != dtype else a, lp)
 
 
+def _ffn_or_moe(lp, h2: torch.Tensor, cfg: ModelConfig):
+    """The layer's FFN half: (out, aux), aux 0 for a dense FFN."""
+    if "moe" in lp:
+        return moe_lib.apply_moe(lp["moe"], h2, cfg.moe,
+                                 activation=cfg.activation)
+    return (apply_ffn(lp["ffn"], h2, activation=cfg.activation, glu=cfg.glu),
+            torch.zeros((), dtype=torch.float32, device=h2.device))
+
+
 def apply_layer_full(lp: Params, x: torch.Tensor, kind: int,
-                     cfg: ModelConfig, positions: torch.Tensor
-                     ) -> torch.Tensor:
-    """One layer over a full sequence."""
+                     cfg: ModelConfig, positions: torch.Tensor):
+    """One layer over a full sequence.  Returns (x, aux loss)."""
     lp = _cast_layer(lp, x.dtype)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if kind in _ATTN:
-        window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+    window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+    if "mla" in lp:
+        x = x + mla_lib.apply_mla(lp["mla"], h, cfg.mla, cfg.num_heads,
+                                  positions, rope_theta=cfg.rope_theta,
+                                  chunk=ATTN_CHUNK, window=window)
+    elif kind in _ATTN:
         x = x + _self_attention(lp["attn"], h, positions, cfg, window=window)
     elif kind == RECURRENT:
         x = x + rglru_lib.apply_rglru(lp["rec"], h,
                                       conv_width=cfg.conv1d_width)
     else:
         raise NotImplementedError(f"layer kind {kind} (ROADMAP A.13)")
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + apply_ffn(lp["ffn"], h2, activation=cfg.activation,
-                         glu=cfg.glu)
+    out, aux = _ffn_or_moe(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + out, aux
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
@@ -233,44 +288,40 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
     return x
 
 
-def _layers(params, plan: StackPlan):
-    """(layer params, kind, where) in stack order; ``where`` is
-    ("cycles", pos, c) or ("tail", i, None)."""
-    for c in range(plan.n_cycles):
-        for pos, kind in enumerate(plan.pattern):
-            yield _cycle(params["cycles"][pos], c), kind, ("cycles", pos, c)
-    for i, kind in enumerate(plan.tail_kinds):
-        yield params["tail"][i], kind, ("tail", i, None)
-
-
-def _apply_cycle(cycle_params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """One repetition of the layer pattern."""
+def _apply_cycle(cycle_params, x: torch.Tensor, aux: torch.Tensor,
+                 cfg: ModelConfig, positions: torch.Tensor):
+    """One repetition of the layer pattern: (x, aux) -> (x, aux)."""
     for lp, kind in zip(cycle_params, cfg.layer_pattern):
-        x = apply_layer_full(lp, x, kind, cfg, positions)
-    return x
+        x, a = apply_layer_full(lp, x, kind, cfg, positions)
+        aux = aux + a
+    return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor], *,
-            remat: bool = False) -> torch.Tensor:
-    """Full-sequence forward: ``batch["tokens"]`` (B, S) -> final-normed
-    hidden (B, S, d).  ``remat``: each pattern cycle is recomputed in the
+            batch: Dict[str, torch.Tensor], *, remat: bool = False):
+    """Full-sequence forward: ``batch["tokens"]`` (B, S) -> (final-normed
+    hidden (B, S, d), aux loss: the MoE layers' summed load-balance
+    terms, fp32 0-d).  ``remat``: each pattern cycle is recomputed in the
     backward (the reference's ``jax.checkpoint`` of its scan body)."""
     plan = stack_plan(cfg)
     x = embed_tokens(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params["head"]:
+        x, a = apply_layer_full(lp, x, cfg.layer_pattern[0], cfg, positions)
+        aux = aux + a
     for c in range(plan.n_cycles):
         cyc = [_cycle(params["cycles"][pos], c)
                for pos in range(len(plan.pattern))]
         if remat:
-            x = checkpoint(_apply_cycle, cyc, x, cfg, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_apply_cycle, cyc, x, aux, cfg, positions,
+                                use_reentrant=False)
         else:
-            x = _apply_cycle(cyc, x, cfg, positions)
+            x, aux = _apply_cycle(cyc, x, aux, cfg, positions)
     for lp, kind in zip(params["tail"], plan.tail_kinds):
-        x = apply_layer_full(lp, x, kind, cfg, positions)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, a = apply_layer_full(lp, x, kind, cfg, positions)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
@@ -331,6 +382,13 @@ def chunked_xent(params, cfg: ModelConfig, hidden: torch.Tensor,
 # ===========================================================================
 def _attn_cache(cfg: ModelConfig, kind: int, batch: int, seq_len: int,
                 dtype, device) -> Params:
+    if cfg.mla is not None:
+        # the latent and the shared RoPE key, written at pos (no ring)
+        return {"c": torch.zeros((batch, seq_len, cfg.mla.kv_lora_rank),
+                                 dtype=dtype, device=device),
+                "kr": torch.zeros((batch, seq_len,
+                                   cfg.mla.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
     size = seq_len if kind == ATTN_GLOBAL else min(cfg.sliding_window,
                                                    seq_len)
     kv = (batch, size, cfg.num_kv_heads, cfg.head_dim)
@@ -363,42 +421,53 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int,
 
     return {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "head": [],
-        "cycles": [_stack([state(kind) for _ in range(plan.n_cycles)])
+        "head": [state(cfg.layer_pattern[0]) for _ in range(plan.n_head)],
+        "cycles": [_stacked(lambda kind=kind: state(kind), plan.n_cycles)
                    if plan.n_cycles else None for kind in plan.pattern],
         "tail": [state(kind) for kind in plan.tail_kinds],
     }
 
 
-def reset_cache_slots(cache: Params, fresh: Params,
-                      reset: torch.Tensor) -> Params:
-    """Fresh state (an :func:`init_cache` of the same shape; not all
-    zeros: ring caches start at ``kv_pos = -1``) in the rows of the
-    slots where ``reset`` (B,) bool is set, the old state elsewhere.
-    Without it a refilled slot decodes against the previous request's
-    KV rows."""
-    def blend(axis):
+def reset_cache_slots_(cache: Params, fresh: Params,
+                       reset: torch.Tensor) -> Params:
+    """Fresh state in the rows of the slots where ``reset`` (B,) bool is
+    set, written into ``cache`` in place, which is returned.  ``fresh``
+    is an :func:`init_cache` of the same seq_len and batch B or 1 (a
+    fresh state is the same in every row; not all zeros: ring caches
+    start at ``kv_pos = -1``).  Without it a refilled slot decodes
+    against the previous request's KV rows."""
+    rows = torch.nonzero(reset).reshape(-1).tolist()
+
+    def put(axis):
         def f(a, b):
-            if a is None:                    # an empty cycles slot
-                return None
-            shape = [1] * a.dim()
-            shape[axis] = -1
-            return torch.where(reset.reshape(shape), b, a)
+            # row by row: a one-slot fresh broadcasts, and no temporary
+            # as large as the reset rows of a stacked leaf is made
+            for r in rows:
+                a.select(axis, r).copy_(
+                    b.select(axis, r if b.shape[axis] == a.shape[axis]
+                             else 0))
         return f
 
-    return {"pos": torch.where(reset, fresh["pos"], cache["pos"]),
-            "head": tree_map(blend(0), cache["head"], fresh["head"]),
-            "tail": tree_map(blend(0), cache["tail"], fresh["tail"]),
-            # cycle-stacked states carry (n_cycles, B, ...) leaves
-            "cycles": tree_map(blend(1), cache["cycles"], fresh["cycles"])}
+    put(0)(cache["pos"], fresh["pos"])
+    tree_map(put(0), cache["head"], fresh["head"])
+    tree_map(put(0), cache["tail"], fresh["tail"])
+    # cycle-stacked states carry (n_cycles, B, ...) leaves
+    tree_map(put(1), cache["cycles"], fresh["cycles"])
+    return cache
 
 
-def _decode_self_attention(ap, cache, h: torch.Tensor, pos: torch.Tensor,
-                           cfg: ModelConfig, kind: int):
-    """h (B, 1, d).  Writes the token's k and v at ``pos % size`` of new
-    copies of the (ring, for windowed layers) cache and attends over the
+def reset_cache_slots(cache: Params, fresh: Params,
+                      reset: torch.Tensor) -> Params:
+    """:func:`reset_cache_slots_` on a copy: ``cache`` is left as it was."""
+    return reset_cache_slots_(tree_map(torch.clone, cache), fresh, reset)
+
+
+def _decode_self_attention_(ap, cache, h: torch.Tensor, pos: torch.Tensor,
+                            cfg: ModelConfig, kind: int) -> torch.Tensor:
+    """h (B, 1, d).  Writes the token's k and v at ``pos % size`` of the
+    (ring, for windowed layers) cache in place and attends over the
     slots holding a position (empty ones sit at INT_MAX, past any
-    query).  Returns (out, new cache)."""
+    query)."""
     B = h.shape[0]
     q, k, v = _qkv(ap, h, cfg)
     positions = pos[:, None]
@@ -408,63 +477,73 @@ def _decode_self_attention(ap, cache, h: torch.Tensor, pos: torch.Tensor,
     size = cache["k"].shape[1]
     slot = (pos % size).long()
     bidx = torch.arange(B, device=h.device)
-    k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
-    kv_pos = cache["kv_pos"].clone()
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
-    kv_pos[bidx, slot] = pos
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["kv_pos"][bidx, slot] = pos
 
     window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+    kv_pos = cache["kv_pos"]
     big = torch.where(kv_pos >= 0, kv_pos,
                       torch.full_like(kv_pos, INT_MAX))
-    out = attn_lib.attend(q, k_cache, v_cache, q_positions=positions,
+    out = attn_lib.attend(q, cache["k"], cache["v"], q_positions=positions,
                           kv_positions=big, causal=True, window=window,
                           attn_softcap=cfg.attn_softcap, chunk=0)
-    return _out_proj(ap, out), {"k": k_cache, "v": v_cache,
-                                "kv_pos": kv_pos}
+    return _out_proj(ap, out)
 
 
-def apply_layer_decode(lp: Params, state: Params, x: torch.Tensor,
-                       kind: int, cfg: ModelConfig, pos: torch.Tensor):
-    """One layer, one token.  x (B, 1, d).  Returns (x, new state)."""
+def apply_layer_decode_(lp: Params, state: Params, x: torch.Tensor,
+                        kind: int, cfg: ModelConfig,
+                        pos: torch.Tensor) -> torch.Tensor:
+    """One layer, one token.  x (B, 1, d).  Writes the layer's new state
+    into ``state`` in place and returns x."""
     lp = _cast_layer(lp, x.dtype)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if kind in _ATTN:
-        out, new_state = _decode_self_attention(lp["attn"], state, h, pos,
-                                                cfg, kind)
+    window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+    if "mla" in lp:
+        out, _, _ = mla_lib.mla_decode(lp["mla"], h, state["c"], state["kr"],
+                                       pos, cfg.mla, cfg.num_heads,
+                                       rope_theta=cfg.rope_theta,
+                                       window=window)
+    elif kind in _ATTN:
+        out = _decode_self_attention_(lp["attn"], state, h, pos, cfg, kind)
     elif kind == RECURRENT:
-        out, new_state = rglru_lib.rglru_decode(lp["rec"], h, state,
-                                                conv_width=cfg.conv1d_width)
+        out, new = rglru_lib.rglru_decode(lp["rec"], h, state,
+                                          conv_width=cfg.conv1d_width)
+        for key, t in new.items():
+            state[key].copy_(t)
     else:
         raise NotImplementedError(f"layer kind {kind} (ROADMAP A.13)")
     x = x + out
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    x = x + apply_ffn(lp["ffn"], h2, activation=cfg.activation, glu=cfg.glu)
-    return x, new_state
+    out, _ = _ffn_or_moe(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + out
+
+
+def decode_step_(params: Params, cache: Params, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """One decode step that writes into ``cache`` in place (every layer's
+    new state, and ``pos`` + 1): a serving loop that owns its cache holds
+    one copy, not two.  tokens (B, 1) int.  Returns logits (B, 1, V)."""
+    plan = stack_plan(cfg)
+    pos = cache["pos"]
+    x = embed_tokens(params, cfg, tokens)
+    for lp, st in zip(params["head"], cache["head"]):
+        x = apply_layer_decode_(lp, st, x, cfg.layer_pattern[0], cfg, pos)
+    for c in range(plan.n_cycles):
+        for i, kind in enumerate(plan.pattern):
+            x = apply_layer_decode_(_cycle(params["cycles"][i], c),
+                                    _cycle(cache["cycles"][i], c), x, kind,
+                                    cfg, pos)
+    for lp, st, kind in zip(params["tail"], cache["tail"], plan.tail_kinds):
+        x = apply_layer_decode_(lp, st, x, kind, cfg, pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return logits_from_hidden(params, cfg, x)
 
 
 def decode_step(params: Params, cache: Params, cfg: ModelConfig,
                 tokens: torch.Tensor):
     """One decode step.  tokens (B, 1) int.  Returns (logits (B, 1, V),
-    new cache); ``cache`` is left as it was."""
-    plan = stack_plan(cfg)
-    pos = cache["pos"]
-    x = embed_tokens(params, cfg, tokens)
-    cyc_states = [[None] * plan.n_cycles for _ in plan.pattern]
-    tail_states = []
-    for lp, kind, (part, i, c) in _layers(params, plan):
-        if part == "cycles":
-            x, st = apply_layer_decode(lp, _cycle(cache["cycles"][i], c), x,
-                                       kind, cfg, pos)
-            cyc_states[i][c] = st
-        else:
-            x, st = apply_layer_decode(lp, cache["tail"][i], x, kind, cfg,
-                                       pos)
-            tail_states.append(st)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_from_hidden(params, cfg, x)
-    new_cache = {"pos": pos + 1, "head": [],
-                 "cycles": [_stack(s) if plan.n_cycles else None
-                            for s in cyc_states],
-                 "tail": tail_states}
-    return logits, new_cache
+    new cache); ``cache`` is left as it was (:func:`decode_step_` on a
+    copy)."""
+    new_cache = tree_map(torch.clone, cache)
+    return decode_step_(params, new_cache, cfg, tokens), new_cache

@@ -38,6 +38,10 @@ from repro_torch.models import ops
 from repro_torch.tree import tree_leaves
 
 ATOL = 1e-5
+# the reference's programs as one jit each at XLA's O0 with LLVM's
+# expensive passes off: run eagerly, JAX compiles every op on its own
+O0 = {"xla_backend_optimization_level": 0,
+      "xla_llvm_disable_expensive_passes": True}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -75,12 +79,12 @@ def _mm_case(M, K, N, masked, seed=0):
 
 
 def _jax_mm_vjp(x, w, g, cm, rm, backend):
-    jm = lambda m: None if m is None else jnp.asarray(m)
-    y, vjp = jax.vjp(lambda x_, w_: jops.masked_matmul(
-        x_, w_, jm(cm), jm(rm), backend=backend), jnp.asarray(x),
-        jnp.asarray(w))
-    dx, dw = vjp(jnp.asarray(g))
-    return np.asarray(y), np.asarray(dx), np.asarray(dw)
+    def value_and_vjp(x, w, g, cm, rm):
+        y, vjp = jax.vjp(lambda x_, w_: jops.masked_matmul(
+            x_, w_, cm, rm, backend=backend), x, w)
+        return (y,) + vjp(g)
+    return tuple(np.asarray(t) for t in jax.jit(
+        value_and_vjp, compiler_options=O0)(x, w, g, cm, rm))
 
 
 def _port_mm_grads(x, w, g, cm, rm):
@@ -173,11 +177,13 @@ def test_attention_grads_match_jax(B, S, H, Hkv, hd, causal, window,
                                    backend):
     """atol 1e-5: fp32 softmax over <= 128 keys of O(1) scores."""
     q, k, v, g = _attn_case(B, S, H, Hkv, hd)
-    y, vjp = jax.vjp(lambda a, b, c: jops.attention(
-        a, b, c, causal=causal, window=window, backend=backend),
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want = (np.asarray(y),) + tuple(np.asarray(d) for d in
-                                    vjp(jnp.asarray(g)))
+
+    def value_and_vjp(a, b, c, ct):
+        y, vjp = jax.vjp(lambda a, b, c: jops.attention(
+            a, b, c, causal=causal, window=window, backend=backend), a, b, c)
+        return (y,) + vjp(ct)
+    want = tuple(np.asarray(x) for x in jax.jit(
+        value_and_vjp, compiler_options=O0)(q, k, v, g))
     qt, kt, vt = _t(q, True), _t(k, True), _t(v, True)
     out = ops.attention(qt, kt, vt, causal=causal, window=window)
     out.backward(_t(g))
@@ -209,9 +215,11 @@ def test_group_sq_norms_grads_match_jax(K, G, C, backend):
     r = np.random.default_rng(2)
     w = r.standard_normal((K, G * C), np.float32)
     g = r.standard_normal(G).astype(np.float32)
-    y, vjp = jax.vjp(lambda a: jops.group_sq_norms_2d(a, G, backend=backend),
-                     jnp.asarray(w))
-    (dw,) = vjp(jnp.asarray(g))
+    def value_and_vjp(a, ct):
+        y, vjp = jax.vjp(
+            lambda a: jops.group_sq_norms_2d(a, G, backend=backend), a)
+        return (y,) + vjp(ct)
+    y, dw = jax.jit(value_and_vjp, compiler_options=O0)(w, g)
     wt = _t(w, True)
     out = ops.group_sq_norms_2d(wt, G)
     out.backward(_t(g))

@@ -7,6 +7,7 @@ tensors the wrappers run the plain version and count no launch; the
 CUDA kernels themselves are checked on the card by ``chip_smoke.py``.
 Inputs come from a numpy seed and go to both packages as numpy.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +29,17 @@ from repro_torch.kernels.group_l2_norms import ops as gl2
 # (plus an rtol for accumulation-order rounding over large K)
 TOL = {"float32": dict(atol=1e-4, rtol=0.0), "bfloat16": dict(atol=0.15,
                                                               rtol=1e-2)}
+# the reference's calls run as one program each, at XLA's O0 with LLVM's
+# expensive passes off: run eagerly, JAX compiles each op (and an
+# interpreted kernel's every op) on its own
+O0 = {"xla_backend_optimization_level": 0,
+      "xla_llvm_disable_expensive_passes": True}
+
+
+def _ref(fn, *args):
+    """The reference's ``fn(*args)`` as one program (array arguments;
+    static ones are closed over)."""
+    return jax.jit(fn, compiler_options=O0)(*args)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,15 +79,15 @@ def test_block_masked_matmul_plain_matches_pallas(M, K, N, dtype, ratio):
     t, j = _inputs(0, M, K, N, ratio, dtype)
     got = bmm.block_masked_matmul_plain(*t)
     assert got.dtype == t[0].dtype
-    _close(got, jax_bmm(*j, interpret=True), dtype)
+    _close(got, _ref(lambda *a: jax_bmm(*a, interpret=True), *j), dtype)
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 27, 3), (8, 128, 512), (130, 77, 65)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_block_masked_matmul_plain_matches_ref_any_shape(M, K, N, dtype):
     t, j = _inputs(1, M, K, N, 0.44, dtype)
-    _close(bmm.block_masked_matmul_plain(*t), block_masked_matmul_ref(*j),
-           dtype)
+    _close(bmm.block_masked_matmul_plain(*t),
+           _ref(block_masked_matmul_ref, *j), dtype)
 
 
 def test_block_masked_matmul_wrapper_on_cpu_runs_plain_uncounted():
@@ -114,8 +126,8 @@ def _qkv(seed, BH, S, hd, dtype):
 def test_flash_attention_plain_matches_pallas(causal, window):
     t, j = _qkv(4, 2, 128, 64, "float32")
     got = fa.flash_attention_plain(*t, causal=causal, window=window)
-    want = flash_attention_bhsd(*j, causal=causal, window=window,
-                                interpret=True)
+    want = _ref(lambda *a: flash_attention_bhsd(
+        *a, causal=causal, window=window, interpret=True), *j)
     # the streaming softmax rescales in another order: 2e-3 as
     # tests/test_kernels.py
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3)
@@ -127,7 +139,7 @@ def test_flash_attention_plain_matches_pallas(causal, window):
 def test_flash_attention_plain_matches_ref_any_shape(BH, S, hd, dtype):
     t, j = _qkv(5, BH, S, hd, dtype)
     got = fa.flash_attention_plain(*t, causal=False)
-    want = flash_attention_ref(*j, causal=False)
+    want = _ref(lambda *a: flash_attention_ref(*a, causal=False), *j)
     atol = 1e-5 if dtype == "float32" else 1e-2
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=atol)
@@ -147,7 +159,7 @@ def test_flash_attention_wrapper_on_cpu_runs_plain_uncounted():
 def test_group_l2_norms_plain_matches_pallas(K, G, C):
     w = np.random.default_rng(7).standard_normal((K, G * C), np.float32)
     got = gl2.group_l2_norms_plain(torch.from_numpy(w), G)
-    want = group_l2_norms(jnp.asarray(w), G, interpret=True)
+    want = _ref(lambda a: group_l2_norms(a, G, interpret=True), w)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
 
 
@@ -161,8 +173,8 @@ def test_group_l2_norms_wrapper_matches_ref(K, N, G):
     assert gl2.group_l2_norms.launches == before
     assert dict(gl2.group_l2_norms.shapes) == shapes
     np.testing.assert_allclose(got.numpy(),
-                               np.asarray(group_l2_norms_ref(jnp.asarray(w),
-                                                             G)), rtol=1e-5)
+                               np.asarray(_ref(lambda a: group_l2_norms_ref(
+                                   a, G), w)), rtol=1e-5)
 
 
 def test_group_l2_norms_rejects_uneven_groups():

@@ -47,6 +47,10 @@ CACHE_LEN = 32
 # dot vs torch's, an associative vs a sequential scan), so the logits
 # agree to a few ulps of their largest value
 LOGIT_TOL = 1e-4
+# the reference's attention runs as one program at XLA's O0 with LLVM's
+# expensive passes off: run eagerly, JAX compiles each op on its own
+O0 = {"xla_backend_optimization_level": 0,
+      "xla_llvm_disable_expensive_passes": True}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -206,9 +210,9 @@ def test_chunked_and_decode_attend_match_jax():
             for _ in range(2))
     pos = np.arange(128, dtype=np.int32)
     kw = dict(causal=True, window=40, chunk=32)
-    want = jax_attn.attend(*map(jnp.asarray, (q, k, v)),
-                           q_positions=jnp.asarray(pos),
-                           kv_positions=jnp.asarray(pos), **kw)
+    want = jax.jit(lambda q_, k_, v_, p_: jax_attn.attend(
+        q_, k_, v_, q_positions=p_, kv_positions=p_, **kw),
+        compiler_options=O0)(q, k, v, pos)
     tq, tk, tv, tp = map(torch.from_numpy, (q, k, v, pos))
     got = attn_lib.attend(tq, tk, tv, q_positions=tp, kv_positions=tp, **kw)
     dense = attn_lib.attend(tq, tk, tv, q_positions=tp, kv_positions=tp,
@@ -218,8 +222,8 @@ def test_chunked_and_decode_attend_match_jax():
     _close_rel(dense.numpy(), want, 1e-5)
     # one new token per row against a cache valid up to pos
     pos = np.asarray([5, 100], np.int32)
-    want = jax_attn.decode_attend(jnp.asarray(q[:, :1]), jnp.asarray(k),
-                                  jnp.asarray(v), jnp.asarray(pos), window=40)
+    want = jax.jit(lambda *a: jax_attn.decode_attend(*a, window=40),
+                   compiler_options=O0)(q[:, :1], k, v, pos)
     got = attn_lib.decode_attend(tq[:, :1], tk, tv, torch.from_numpy(pos),
                                  window=40)
     _close_rel(got.numpy(), want, 1e-5)

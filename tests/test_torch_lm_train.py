@@ -575,7 +575,9 @@ def test_input_specs_match_jax():
         for k, v in model.input_specs(CFG, small).items()}
     assert 0 <= int(x["tokens"].min()) and int(x["tokens"].max()) \
         < CFG.vocab_size
-    assert list_archs() == [ARCH]
+    assert list_archs() == sorted([ARCH, "deepseek-v3-671b",
+                                   "moonshot-v1-16b-a3b",
+                                   "qwen3-moe-235b-a22b"])
 
 
 def test_train_cli_trains_and_saves_a_reference_checkpoint(tmp_path):

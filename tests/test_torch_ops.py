@@ -25,6 +25,16 @@ from repro_torch.models.unet import upsample2x
 
 ATOL = 1e-5
 BACKENDS = ("xla", "ref")
+# the reference's calls run as one program each, at XLA's O0 with LLVM's
+# expensive passes off: run eagerly, JAX compiles each op on its own
+O0 = {"xla_backend_optimization_level": 0,
+      "xla_llvm_disable_expensive_passes": True}
+
+
+def _ref(fn, *args):
+    """The reference's ``fn(*args)`` as one program (array arguments;
+    static ones are closed over)."""
+    return jax.jit(fn, compiler_options=O0)(*args)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -64,10 +74,9 @@ def test_conv_matches_jax(backend, k, stride, cin, cout, masked):
     if masked:
         cm = (r.random(cout) > 0.44).astype(np.float32)
         rm = (r.random(cin) > 0.44).astype(np.float32)
-    want = jops.conv(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
-                     stride=stride, backend=backend,
-                     col_mask=None if cm is None else jnp.asarray(cm),
-                     row_mask=None if rm is None else jnp.asarray(rm))
+    want = _ref(lambda p_, x_, cm_, rm_: jops.conv(
+        p_, x_, stride=stride, backend=backend, col_mask=cm_, row_mask=rm_),
+        p, x, cm, rm)
     tp = {k_: _t(v) for k_, v in p.items()}
     got = ops.conv(tp, _t(x), stride=stride,
                    col_mask=None if cm is None else _t(cm),
@@ -96,8 +105,9 @@ def test_masked_matmul_host_vs_device_masks(ratio):
     rm = (r.random(40) >= ratio / 2).astype(np.float32)
     dev = ops.masked_matmul(_t(x), _t(w), _t(cm), _t(rm))
     host = ops.masked_matmul(_t(x), _t(w), cm, rm)
-    want = jops.masked_matmul(jnp.asarray(x), jnp.asarray(w), cm, rm,
-                              backend="xla")
+    # host masks: the reference's static route, closed over
+    want = _ref(lambda x_, w_: jops.masked_matmul(x_, w_, cm, rm,
+                                                  backend="xla"), x, w)
     assert dev.shape == host.shape == (3, 5, 24)
     np.testing.assert_allclose(host.numpy(), dev.numpy(), atol=ATOL)
     np.testing.assert_allclose(host.numpy(), np.asarray(want), atol=ATOL)
@@ -112,8 +122,8 @@ def test_dense_col_mask_matches_jax(backend):
     p = {"w": r.standard_normal((32, 20), np.float32),
          "b": r.standard_normal(20).astype(np.float32)}
     cm = (r.random(20) > 0.5).astype(np.float32)
-    want = jops.dense(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
-                      backend=backend, col_mask=jnp.asarray(cm))
+    want = _ref(lambda p_, x_, cm_: jops.dense(p_, x_, backend=backend,
+                                               col_mask=cm_), p, x, cm)
     tp = {k: _t(v) for k, v in p.items()}
     for mask in (_t(cm), cm):
         np.testing.assert_allclose(
@@ -132,8 +142,8 @@ def test_bf16_gemm_casts_activations():
     assert tw["w"].dtype == torch.bfloat16 and tw["n"].dtype == torch.int64
     got = ops.masked_matmul(_t(x), tw["w"])
     assert got.dtype == torch.bfloat16
-    want = jops.masked_matmul(jnp.asarray(x), jnp.asarray(w, jnp.bfloat16),
-                              backend="xla")
+    want = _ref(lambda x_, w_: jops.masked_matmul(x_, w_, backend="xla"),
+                x, jnp.asarray(w, jnp.bfloat16))
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=2e-2,
                                atol=2e-2)
@@ -150,8 +160,8 @@ def test_attention_matches_jax(backend, B, S, H, Hkv, hd, causal, window):
     q = r.standard_normal((B, S, H, hd), np.float32)
     k = r.standard_normal((B, S, Hkv, hd), np.float32)
     v = r.standard_normal((B, S, Hkv, hd), np.float32)
-    want = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                          causal=causal, window=window, backend=backend)
+    want = _ref(lambda q_, k_, v_: jops.attention(
+        q_, k_, v_, causal=causal, window=window, backend=backend), q, k, v)
     got = ops.attention(_t(q), _t(k), _t(v), causal=causal, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
@@ -159,7 +169,8 @@ def test_attention_matches_jax(backend, B, S, H, Hkv, hd, causal, window):
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_group_sq_norms_matches_jax(backend):
     w = _rng(5).standard_normal((288, 64), np.float32)
-    want = jops.group_sq_norms_2d(jnp.asarray(w), 16, backend=backend)
+    want = _ref(lambda w_: jops.group_sq_norms_2d(w_, 16, backend=backend),
+                w)
     got = ops.group_sq_norms_2d(_t(w), 16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
 
@@ -172,7 +183,7 @@ def test_group_norm_matches_jax(c):
     x = r.standard_normal((2, 4, 4, c), np.float32) * 3 + 1
     s = r.standard_normal(c).astype(np.float32)
     b = r.standard_normal(c).astype(np.float32)
-    want = jax_group_norm(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    want = _ref(jax_group_norm, x, s, b)
     got = group_norm(_t(x), _t(s), _t(b))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
@@ -180,7 +191,7 @@ def test_group_norm_matches_jax(c):
 def test_sinusoidal_embedding_matches_jax():
     t = np.array([0, 1, 17, 500, 999], np.int32)
     for dim in (32, 33, 128):
-        want = jax_sinusoidal(jnp.asarray(t), dim)
+        want = _ref(lambda t_: jax_sinusoidal(t_, dim), t)
         got = sinusoidal_embedding(_t(t), dim)
         assert got.shape == want.shape
         # cos/sin of arguments up to 999 rad: one float32 ulp of the
@@ -214,10 +225,9 @@ def test_ddim_step_matches_jax(eta):
     z = r.standard_normal((3, 4, 4, 3), np.float32)
     t = np.array([999, 500, 10], np.int64)
     tp = np.array([899, 400, -1], np.int64)
-    want = jax_ddim_step(jnp.asarray(x), jnp.asarray(t, jnp.int32),
-                         jnp.asarray(tp, jnp.int32), jnp.asarray(eps),
-                         jax_schedule(1000), eta=eta,
-                         z=jnp.asarray(z) if eta else None)
+    want = _ref(lambda x_, t_, tp_, eps_, z_: jax_ddim_step(
+        x_, t_, tp_, eps_, jax_schedule(1000), eta=eta, z=z_), x,
+        t.astype(np.int32), tp.astype(np.int32), eps, z if eta else None)
     got = ddim_step(_t(x), _t(t), _t(tp), _t(eps),
                     linear_schedule(1000, device="cpu"), eta=eta,
                     z=_t(z) if eta else None)

@@ -24,6 +24,7 @@ from repro import checkpoint as jax_checkpoint
 from repro.configs import CIFAR10_UNET as JAX_CIFAR
 from repro.configs import SMOKE_UNET as JAX_SMOKE
 from repro.configs.base import config_to_dict as jax_cfg_dict
+from repro.core.pruning import criteria as jax_criteria
 from repro.diffusion import ddim_sample as jax_ddim_sample
 from repro.diffusion.schedule import linear_schedule as jax_schedule
 from repro.metrics.flops import unet_macs as jax_unet_macs
@@ -46,6 +47,41 @@ STEPS = 3
 ATOL = 1e-4
 SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")
+# the reference's programs compile at XLA's O0 with LLVM's expensive
+# passes off: a SMOKE U-Net forward compiles in less time than the
+# default level takes, and the few runs here do not pay for slower code
+O0 = {"xla_backend_optimization_level": 0,
+      "xla_llvm_disable_expensive_passes": True}
+_jax_forward = jax.jit(lambda p, x, t: jax_apply_unet(p, JCFG, x, t),
+                       compiler_options=O0)
+# the reference's deterministic DDIM sampler from x_init, one program a
+# batch size
+_jax_ddim = jax.jit(lambda p, x: jax_ddim_sample(
+    lambda xx, tt: jax_apply_unet(p, JCFG, xx, tt),
+    jax_schedule(JCFG.diffusion_steps), jax.random.PRNGKey(0), x.shape,
+    num_steps=STEPS, x_init=x), compiler_options=O0)
+_L2_PROGRAMS = {}
+_jax_l2_scores = jax_criteria.l2_scores
+
+
+def _jitted_l2_scores(params, groups, backend=""):
+    """The reference's ``l2_scores`` in one program per group list:
+    eagerly it compiles each of its ops on its own (~3 s here)."""
+    key = (tuple(groups), backend)
+    if key not in _L2_PROGRAMS:
+        _L2_PROGRAMS[key] = jax.jit(
+            lambda p: _jax_l2_scores(p, groups, backend=backend),
+            compiler_options=O0)
+    return _L2_PROGRAMS[key](params)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jitted_reference_scores():
+    """The reference's ``masks_for_ratio`` scores through
+    :func:`_jitted_l2_scores` (it looks ``l2_scores`` up when called)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_criteria, "l2_scores", _jitted_l2_scores)
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -120,13 +156,10 @@ def test_apply_unet_matches_jax(jax_params, torch_params, ratio):
     t = np.array([3, 97], np.int32)
     jmasks = None if ratio == 0 else \
         jax_masks_for_ratio(jax_params, JCFG, ratio)
-    # one forward: XLA's O0 compiles it in less time than the default
-    # level takes, and one run does not pay for the slower code
-    fwd = jax.jit(lambda p, x_, t_: jax_apply_unet(p, JCFG, x_, t_,
-                                                   masks=jmasks),
-                  compiler_options={"xla_backend_optimization_level": 0,
-                                    "xla_llvm_disable_expensive_passes":
-                                        True})
+    # the host masks specialize the trace: a program of its own
+    fwd = _jax_forward if jmasks is None else jax.jit(
+        lambda p, x_, t_: jax_apply_unet(p, JCFG, x_, t_, masks=jmasks),
+        compiler_options=O0)
     want = fwd(jax_params, jnp.asarray(x), jnp.asarray(t))
     masks = None if jmasks is None else masks_from_jax(jmasks)
     got = apply_unet(torch_params, SMOKE_UNET, torch.from_numpy(x),
@@ -171,12 +204,7 @@ def test_server_matches_jax_ddim_sample_mixed_depths(jax_params,
     out = {}
     while server.active_count():
         out.update(dict(server.step()))
-    sched = jax_schedule(JCFG.diffusion_steps)
-    eps_fn = jax.jit(lambda x, t: jax_apply_unet(jax_params, JCFG, x, t))
-    want = jax_ddim_sample(eps_fn, sched, jax.random.PRNGKey(0),
-                           (3, 16, 16, 3), num_steps=STEPS,
-                           x_init=jnp.asarray(xt))
-    want = np.asarray(want)
+    want = np.asarray(_jax_ddim(jax_params, jnp.asarray(xt)))
     for rid, img in [(0, res.images[0]), (1, res.images[1]), (2, out[2]),
                      (1, out[1])]:
         np.testing.assert_allclose(img, want[rid], atol=ATOL)
@@ -184,10 +212,7 @@ def test_server_matches_jax_ddim_sample_mixed_depths(jax_params,
 
 def test_ddim_sample_matches_jax(jax_params, torch_params):
     xt = _xt(3, 2)
-    eps_fn = jax.jit(lambda x, t: jax_apply_unet(jax_params, JCFG, x, t))
-    want = jax_ddim_sample(eps_fn, jax_schedule(JCFG.diffusion_steps),
-                           jax.random.PRNGKey(0), xt.shape,
-                           num_steps=STEPS, x_init=jnp.asarray(xt))
+    want = _jax_ddim(jax_params, jnp.asarray(xt))
     got = ddim_sample(lambda x, t: apply_unet(torch_params, SMOKE_UNET, x, t),
                       linear_schedule(SMOKE_UNET.diffusion_steps,
                                       device="cpu"),

@@ -3,7 +3,8 @@
 
   python3 tools/chip_phases.py [memory] [baselines] [centralized] [bf16]
                                [faults] [quant] [quantmem] [obs] [sweep]
-                               [lmtrain] [lmprofile] [lmgrad] [check]
+                               [lmtrain] [lmprofile] [lmgrad] [moe]
+                               [moeprofile] [check]
 
 Builds the kernels, then runs the named phases of ``chip_smoke.py`` in
 the order given (default: all): ``memory`` is
@@ -18,7 +19,11 @@ manifests and reports in ``build/chip_phases/sweep``), ``lmtrain`` is
 ``build/chip_phases/lm_train``), ``lmprofile`` the same with one more
 step under ``torch.profiler`` (its table in
 ``build/chip_phases/lm_train_profile.txt``), ``lmgrad`` is
-``lm_grad_phase``, and
+``lm_grad_phase``, ``moe`` is ``moe_phases`` (moonshot's full-depth
+prefill and serving, the three MoE/MLA configs' prefill against decode
+at depth 4, moonshot's train step), ``moeprofile`` the same with one
+more moonshot prefill and 8 decode steps under ``torch.profiler``
+(tables in ``build/chip_phases/moe_*_profile.txt``), and
 ``check`` (last) holds every matmul, attention, group-L2 and scan
 (forward and backward) shape the phases before it launched against the
 plain versions (``check_matmul``, ``check_attention``,
@@ -42,7 +47,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("memory", "baselines", "centralized", "bf16", "faults", "quant",
           "quantmem", "obs", "sweep", "lmtrain", "lmprofile", "lmgrad",
-          "check")
+          "moe", "moeprofile", "check")
 
 
 def main(argv) -> int:
@@ -126,6 +131,12 @@ def main(argv) -> int:
                     profile=phase == "lmprofile"))
             elif phase == "lmgrad":
                 cs.lm_grad_phase(dev, counters)
+            elif phase in ("moe", "moeprofile"):
+                for t in cs.moe_phases(
+                        dev, counters, zero,
+                        profile_dir=os.path.join(ROOT, "build", "chip_phases")
+                        if phase == "moeprofile" else None).values():
+                    cs.merge_tally(tally, t)
             elif phase == "check" and tally:
                 mm, dx = tally.get("block_masked_matmul", {}), \
                     tally.get("block_masked_matmul_dx", {})
