@@ -105,6 +105,28 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             remat, B = 1, S = 4096: finite falling losses, aux above 0,
             exactly 7 attention launches a step (the head once, each
             cycle twice), params their master's cast;
+7n. dense_prefill  the full 40-layer command-r-35b (30.3e9 params,
+            parallel attention and FFN blocks, GQA 64/8 at hd 128, tied
+            256,000-token embedding) in bf16 with random weights from
+            the port's init, B = 2, S = 4096: one warm-up and LM_TIMED
+            timed prefills, exactly 40 attention launches each at
+            (BH 128, S 4096, hd 128, causal, bf16), MODEL_FLOPS and
+            model TFLOP/s (``metrics/flops.py``), the peak above the
+            resident weights;
+7o. dense_serve  ``serve_requests`` on the same model with LM_SERVE
+            (weights, one 5.37e9 B KV cache and a one-slot fresh cache);
+7p. dense_consistency  command-r, internlm2-20b and internvl2-76b at
+            full width cut to 4 layers, gemma2-2b (soft-capped: no
+            attention launch) and whisper-base (6 encoder and 6 decoder
+            layers) whole, fp32, one at a time: the prefill's last
+            logits against decode after the same positions, within
+            DENSE_TOL; internvl2's 256 image positions hold the token
+            embeddings of chosen ids, which decode feeds, and whisper's
+            decode cache holds the prefill's encoder output;
+7q. dense_train  ``build_train_step`` on the full 26-layer gemma2-2b
+            (2,614,222,080 params), bf16 over an fp32 master, remat,
+            B = 1, S = 4096: finite falling losses, 0 attention launches
+            (the soft-capped route), params their master's cast;
 7b. experiment  ``repro_torch.experiment.runner.main`` in process with
             ``--preset paper --eval-every 1``: full-width CIFAR10_UNET,
             20 clients of 256 cifar10-like images (2 classes each), 2
@@ -329,12 +351,29 @@ MOE_TRAIN_DEPTH = 4              # the dense head layer and 3 MoE layers
 MOE_PATHS = ("moe_prefill", "moe_serve") + tuple(
     f"moe_consistency_{label}" for label, _, _ in MOE_CONSISTENCY) + (
     "moe_train",)
+# phases 7n-7q: command-r at full width and depth (prefill, serving),
+# each dense-extras config at full width in fp32 (prefill against decode;
+# command-r, internlm2 and internvl2 cut in depth, gemma2 and whisper
+# whole), gemma2's train step at full depth
+DENSE_ARCH = "command-r-35b"
+DENSE_CONSISTENCY = (("command_r", "command-r-35b", 4),
+                     ("internlm2", "internlm2-20b", 4),
+                     ("internvl2", "internvl2-76b", 4),
+                     ("gemma2", "gemma2-2b", 26),
+                     ("whisper", "whisper-base", 6))
+DENSE_CONSISTENCY_SEQ = 8        # text tokens; internvl2 adds its 256 images
+# prefill against decode, x max|decode logit|, fp32 with TF32 off
+DENSE_TOL = 1e-5
+DENSE_TRAIN_ARCH = "gemma2-2b"
+DENSE_PATHS = ("dense_prefill", "dense_serve") + tuple(
+    f"dense_consistency_{label}" for label, _, _ in DENSE_CONSISTENCY) + (
+    "dense_train",)
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
 BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "experiment", "baselines",
                                 "faults", "quant", "sweep")
 PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + MOE_PATHS \
-    + BACKWARD_PATHS[2:]
+    + DENSE_PATHS + BACKWARD_PATHS[2:]
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
               "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
 TRAIN_BATCH = 32
@@ -1639,6 +1678,295 @@ def moe_phases(dev, counters, zero_counters, profile_dir=None):
         tallies[f"moe_consistency_{label}"] = moe_consistency_phase(
             label, arch, depth, dev, counters, zero_counters)
     tallies["moe_train"] = moe_train_phase(dev, counters, zero_counters)
+    return tallies
+
+
+# ---------------------------------------------------------------------------
+# phases 7n-7q: the dense extras (soft-capping, parallel blocks, the VLM
+# prefix, the encoder and cross-attention)
+# ---------------------------------------------------------------------------
+
+def dense_prefill_phase(cfg, params, dev, counters, zero_counters):
+    """Full-width, full-depth DENSE_ARCH prefill: one warm-up and
+    LM_TIMED timed prefills of B = 2, S = 4096; exactly one attention
+    launch a layer (every layer causal, no soft-capping) at the key
+    :func:`flash_key` gives, GQA expanded before it.  Returns the run's
+    tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.metrics import flops
+
+    step = build_prefill_step(cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (LM_BATCH, LM_SEQ))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    times = []
+    for _ in range(1 + LM_TIMED):
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    runs = 1 + LM_TIMED
+    med = float(np.median(times[1:]))
+    work = flops.model_flops(cfg, InputShape("dense_prefill", LM_SEQ,
+                                             LM_BATCH, "prefill"))
+    finite = bool(torch.isfinite(logits).all())
+    key = flash_key(cfg, LM_BATCH, LM_SEQ, cfg.dtype)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # ops.attention's repeat of K and V to every query head, one layer
+    kv_copy = 2 * LM_BATCH * LM_SEQ * cfg.num_heads * cfg.head_dim * 2
+    emit("dense_prefill", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, batch=LM_BATCH, seq=LM_SEQ, cut="none",
+         parallel_block=cfg.parallel_block,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         params=flops.count_params_analytic(cfg),
+         param_bytes=tensor_bytes(params), model_flops=work,
+         warmup_ms=times[0] * 1e3, prefill_ms=[t * 1e3 for t in times[1:]],
+         prefill_ms_median=med * 1e3, tokens_per_s=LM_BATCH * LM_SEQ / med,
+         model_tflops_per_s=work / med / 1e12, peak_mem_bytes=peak,
+         resident_bytes=resident, peak_over_resident_bytes=peak - resident,
+         gqa_kv_copy_bytes_per_layer=kv_copy, prefills=runs,
+         launches=launches, flash_shapes={str(k): v for k, v in
+                                          tally["flash_attention"].items()},
+         logits_shape=list(logits.shape), finite=finite,
+         max_abs_logit=float(logits.float().abs().max()))
+    require(tally["flash_attention"] == {key: cfg.num_layers * runs},
+            f"dense_prefill: attention launches {tally['flash_attention']} "
+            f"over {runs} prefills, want {cfg.num_layers} a prefill at "
+            f"{key}")
+    require(launches["block_masked_matmul"] == 0
+            and launches["group_l2_norms"] == 0
+            and launches["rglru_scan"] == 0,
+            f"dense_prefill: another kernel was launched: {launches}")
+    require(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and finite,
+            f"dense_prefill: logits {tuple(logits.shape)}, finite={finite}")
+    return tally
+
+
+def dense_consistency_phase(label, arch, depth, dev, counters,
+                            zero_counters):
+    """``arch`` at full width and ``depth`` layers, fp32 (TF32 off): the
+    prefill's last logits against the decode logits after the same
+    positions one by one, within DENSE_TOL of max|logit|.  internvl2's
+    256 image positions (``num_image_tokens``) carry the token
+    embeddings of chosen ids, which decode then feeds before the text; whisper's cache
+    holds the prefill's encoder output (random frames), and its cross
+    q/k/v biases are zero (the init's), since the reference's decode
+    leaves them out; gemma2's soft-capping is on.  One attention launch
+    a causal layer without soft-capping (none for gemma2, the encoder
+    or cross-attention), none while decoding.  Returns the prefill's
+    tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.metrics import flops
+    from repro_torch.models import model
+    from repro_torch.models import transformer as tfm
+
+    full = get_config(arch)
+    cfg = full.replace(num_layers=depth, dtype="float32",
+                       param_dtype="float32")
+    gen = torch.Generator(dev)
+    gen.manual_seed(8)
+    t0 = time.perf_counter()
+    params = model.init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    r = np.random.default_rng(8)
+    toks = torch.from_numpy(r.integers(
+        0, cfg.vocab_size, (1, DENSE_CONSISTENCY_SEQ))).to(dev)
+    batch, feed, enc = {"tokens": toks}, toks, None
+    if cfg.arch_type == "vlm":
+        ids = torch.from_numpy(r.integers(
+            0, cfg.vocab_size, (1, cfg.num_image_tokens))).to(dev)
+        batch["image_embeds"] = params["embed"][ids]
+        feed = torch.cat([ids, toks], dim=1)
+    if cfg.arch_type == "encdec":
+        batch["frames"] = torch.randn(1, cfg.encoder_seq_len, cfg.d_model,
+                                      generator=gen, device=dev)
+        require(not any(params["cycles"][0]["cross"][b].any()
+                        for b in ("bq", "bk", "bv")),
+                f"dense_consistency {label}: cross q/k/v biases not 0")
+    zero_counters()
+    t0 = time.perf_counter()
+    pre = build_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    if cfg.arch_type == "encdec":
+        with torch.no_grad():
+            enc = tfm.apply_encoder(params, batch["frames"], cfg)
+    seq = feed.shape[1]
+    cache = tfm.init_cache(params, cfg, 1, seq, enc_out=enc)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(seq):
+            dec = model.decode_(params, cache, cfg, feed[:, t:t + 1])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    after = {k: fn.launches for k, fn in counters.items()}
+    dec = dec[:, 0]
+    err = float((pre - dec).abs().max())
+    scale = float(dec.abs().max())
+    causal = 0 if cfg.attn_softcap else depth
+    want = {flash_key(cfg, 1, seq, "float32"): causal} if causal else {}
+    emit("dense_consistency", model=arch, label=label, layers=depth,
+         encoder_layers=cfg.num_encoder_layers
+         if cfg.arch_type == "encdec" else 0,
+         cut=f"depth {full.num_layers} -> {depth}" if depth <
+         full.num_layers else "none", dtype="float32",
+         params=flops.count_params_analytic(cfg),
+         param_bytes=tensor_bytes(params), init_s=init_s, seq=seq,
+         text_tokens=DENSE_CONSISTENCY_SEQ, attn_softcap=cfg.attn_softcap,
+         logit_softcap=cfg.logit_softcap,
+         parallel_block=cfg.parallel_block, arch_type=cfg.arch_type,
+         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3
+         / seq, max_abs_err=err, max_abs_logit=scale,
+         tol=DENSE_TOL * scale,
+         same_argmax=bool(torch.equal(pre.argmax(-1), dec.argmax(-1))),
+         prefill_launches=launches,
+         flash_shapes={str(k): v for k, v in
+                       tally["flash_attention"].items()},
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    require(tally["flash_attention"] == want,
+            f"dense_consistency {label}: attention launches "
+            f"{tally['flash_attention']}, want {want}")
+    require(after == launches,
+            f"dense_consistency {label}: decode launched a kernel: {after}")
+    require(bool(torch.isfinite(pre).all()) and scale > 0
+            and err <= DENSE_TOL * scale,
+            f"dense_consistency {label}: prefill vs decode logits err {err} "
+            f"> {DENSE_TOL} x {scale}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return tally
+
+
+def dense_train_phase(dev, counters, zero_counters, profile_dir=None):
+    """``build_opt_init`` and LM_TRAIN_WARMUP + LM_TIMED steps of
+    ``build_train_step`` on the same batch: full-width, full-depth
+    DENSE_TRAIN_ARCH (gemma2: every layer soft-capped, so attention takes
+    the plain route and the kernel is launched 0 times), bf16 params
+    over an fp32 master, fp32 moments, remat on, B = 1,
+    S = LM_TRAIN_SEQ, lr LM_TRAIN_LR: finite, falling losses, every
+    bf16 param its master's cast bitwise, the peak below the card's
+    memory, beside 16 B a param; with ``profile_dir``, one more step
+    under ``torch.profiler``.  Returns the steps' tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_opt_init, build_train_step
+    from repro_torch.metrics import flops
+    from repro_torch.models import model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(DENSE_TRAIN_ARCH)
+    gen = torch.Generator(dev)
+    gen.manual_seed(9)
+    params = model.init(cfg, gen, device=dev)
+    opt = build_opt_init(cfg)(params)
+    n = sum(p.numel() for p in tree_leaves(params))
+    resident = tensor_bytes(params) + tensor_bytes(opt)
+    batch = lm_train_batch(cfg, dev, LM_TRAIN_SEQ, 10)
+    step = build_train_step(cfg, lr=LM_TRAIN_LR)
+    runs = LM_TRAIN_WARMUP + LM_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    times, losses = [], []
+    for i in range(runs):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    master_cast = all(torch.equal(p, m.to(p.dtype)) for p, m in
+                      zip(tree_leaves(params), tree_leaves(opt.master)))
+    med = float(np.median(times[LM_TRAIN_WARMUP:]))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    emit("dense_train", model=cfg.name, layers=cfg.num_layers, cut="none",
+         params=n, params_analytic=flops.count_params_analytic(cfg),
+         attn_softcap=cfg.attn_softcap, logit_softcap=cfg.logit_softcap,
+         dtype=cfg.dtype, param_dtype=cfg.param_dtype, master="float32",
+         moments="float32", remat=True, batch=1, seq=LM_TRAIN_SEQ,
+         lr=LM_TRAIN_LR, losses=losses, warmup_ms=times[0] * 1e3,
+         step_ms=[t * 1e3 for t in times[LM_TRAIN_WARMUP:]],
+         step_ms_p50=med * 1e3, tokens_per_s=LM_TRAIN_SEQ / med,
+         peak_mem_bytes=peak, card_mem_bytes=total, state_bytes=resident,
+         state_with_grads_estimate_bytes=LM_BYTES_PER_PARAM * n,
+         launches=launches, params_are_master_cast=master_cast)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"dense_train: losses {losses} are not finite and falling")
+    require(not any(launches.values()) and not any(
+        tally[k] for k in ("rglru_scan_bwd", "group_l2_norms_bwd",
+                           "block_masked_matmul_dx")),
+            f"dense_train: a kernel was launched (want 0 attention "
+            f"launches, the softcap route): {launches}")
+    require(master_cast, "dense_train: a bf16 param is not its master's "
+                         "cast")
+    require(peak < total, f"dense_train: peak {peak} >= the card's {total}")
+    if profile_dir:
+        emit("profile", run="dense_train step, profiled", seq=LM_TRAIN_SEQ,
+             **profiled(lambda: step(params, opt, batch, runs),
+                        os.path.join(profile_dir,
+                                     "dense_train_profile.txt")))
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    return tally
+
+
+def dense_phases(dev, counters, zero_counters, profile_dir=None):
+    """Phases 7n-7q in order, each model freed before the next; returns
+    path -> tallies.  With ``profile_dir``, one more prefill and
+    LM_PROFILE_STEPS decode steps of DENSE_ARCH under ``torch.profiler``
+    after dense_serve (:func:`lm_profile_phase`), and one more
+    dense_train step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    tallies = {}
+    torch.cuda.empty_cache()
+    cfg = get_config(DENSE_ARCH)
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    emit("dense_init", model=cfg.name, seconds=time.perf_counter() - t0,
+         param_bytes=tensor_bytes(params),
+         allocated_bytes=torch.cuda.memory_allocated(dev),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    tallies["dense_prefill"] = dense_prefill_phase(cfg, params, dev,
+                                                   counters, zero_counters)
+    torch.cuda.empty_cache()
+    tallies["dense_serve"] = lm_serve_phase(cfg, params, dev, counters,
+                                            zero_counters,
+                                            phase="dense_serve")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        lm_profile_phase(cfg, params, dev, profile_dir, name="dense")
+    del params
+    torch.cuda.empty_cache()
+    for label, arch, depth in DENSE_CONSISTENCY:
+        tallies[f"dense_consistency_{label}"] = dense_consistency_phase(
+            label, arch, depth, dev, counters, zero_counters)
+    tallies["dense_train"] = dense_train_phase(dev, counters, zero_counters,
+                                               profile_dir)
     return tallies
 
 
@@ -3777,7 +4105,7 @@ def profile_phase(cfg, dev, out_dir):
 
 def lm_profile_phase(cfg, params, dev, out_dir, name="lm"):
     """``--profile``: one more prefill as in lm_prefill (moe_prefill for
-    ``name`` "moe"), and LM_PROFILE_STEPS decode steps at 8 slots
+    ``name`` "moe", dense_prefill for "dense"), and LM_PROFILE_STEPS decode steps at 8 slots
     against a fresh cache of cache_len 4096, written in place as
     ``serve_requests`` writes it, each under ``torch.profiler``
     (:func:`profiled`)."""
@@ -4113,6 +4441,11 @@ def run(out_dir: str, profile: bool = False) -> dict:
     # and serving; each config's prefill against decode; moonshot training
     tallies.update(moe_phases(dev, counters, zero_counters,
                               profile_dir=out_dir if profile else None))
+
+    # -- 7n-7q. the dense extras: command-r at full depth, prefill and
+    # serving; each config's prefill against decode; gemma2 training ----
+    tallies.update(dense_phases(dev, counters, zero_counters,
+                                profile_dir=out_dir if profile else None))
 
     # -- 4b. the experiment API: the paper preset, run and resumed ---------
     tallies["experiment"] = experiment_phase(dev, counters, zero_counters)

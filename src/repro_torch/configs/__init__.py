@@ -1,19 +1,27 @@
-"""Config registry: the paper's DDPM U-Nets, the decoder LMs the port
-serves, their reduced smoke variants, and the federated-learning
-config."""
+"""Config registry: the paper's DDPM U-Nets, the reference's
+architectures less ``rwkv6-7b`` (its layer kind is not ported), their
+reduced smoke variants, the assigned input shapes with the per-shape
+adaptation, and the federated-learning config."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs.base import (DECODE_32K, LONG_500K, PREFILL_32K,
-                                      TRAIN_4K, FLConfig, InputShape,
-                                      MLAConfig, ModelConfig, MoEConfig)
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, DECODE_32K,
+                                      INPUT_SHAPES, LONG_500K, PREFILL_32K,
+                                      RECURRENT, RWKV, TRAIN_4K, FLConfig,
+                                      InputShape, MLAConfig, ModelConfig,
+                                      MoEConfig)
+from repro_torch.configs.command_r_35b import CONFIG as _command_r
 from repro_torch.configs.ddpm_unet import CELEBA_UNET, CIFAR10_UNET, SMOKE_UNET
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3
+from repro_torch.configs.gemma2_2b import CONFIG as _gemma2_2b
+from repro_torch.configs.internlm2_20b import CONFIG as _internlm2_20b
+from repro_torch.configs.internvl2_76b import CONFIG as _internvl2_76b
 from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as _moonshot
 from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as _qwen3_moe
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma_9b
+from repro_torch.configs.whisper_base import CONFIG as _whisper_base
 
 UNETS: Dict[str, ModelConfig] = {
     "ddpm-unet-cifar10": CIFAR10_UNET,
@@ -21,20 +29,25 @@ UNETS: Dict[str, ModelConfig] = {
     "ddpm-unet-smoke": SMOKE_UNET,
 }
 
-# the reference's other decoder configs wait for their layer kinds
-# (ROADMAP A.13)
+# the reference's ARCHS less rwkv6-7b, whose layer kind waits (ROADMAP
+# A.13)
 ARCHS: Dict[str, ModelConfig] = {
     "recurrentgemma-9b": _recurrentgemma_9b,
+    "whisper-base": _whisper_base,
+    "internlm2-20b": _internlm2_20b,
+    "gemma2-2b": _gemma2_2b,
+    "internvl2-76b": _internvl2_76b,
     "moonshot-v1-16b-a3b": _moonshot,
     "deepseek-v3-671b": _deepseek_v3,
     "qwen3-moe-235b-a22b": _qwen3_moe,
+    "command-r-35b": _command_r,
 }
 
 ALL_CONFIGS: Dict[str, ModelConfig] = {**ARCHS, **UNETS}
 
 
 def list_archs() -> List[str]:
-    """The decoder architectures the port has, sorted."""
+    """The transformer architectures the port has, sorted."""
     return sorted(ARCHS.keys())
 
 
@@ -56,20 +69,40 @@ def register_config(name: str, cfg: ModelConfig, *,
     ALL_CONFIGS[name] = cfg
 
 
+def get_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]
+
+
+def adapt_for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """The reference's per-shape adaptation: for ``long_500k`` decode, a
+    model with full-attention layers (other than gemma2, whose local and
+    global layers alternate) has its global layers made windowed
+    (window 4096, ``+swa4096`` in its name), so that its KV cache and
+    per-token cost stay bounded; natively sub-quadratic models and every
+    other shape are left as they are."""
+    if shape.name != "long_500k" or cfg.arch_type == "unet":
+        return cfg
+    if set(cfg.layer_kinds()) <= {ATTN_LOCAL, RECURRENT, RWKV}:
+        return cfg
+    if cfg.name == "gemma2-2b":
+        return cfg
+    pattern = tuple(ATTN_LOCAL if k == ATTN_GLOBAL else k
+                    for k in cfg.layer_pattern)
+    return cfg.replace(name=cfg.name + "+swa4096", layer_pattern=pattern,
+                       sliding_window=4096,
+                       max_seq_len=max(cfg.max_seq_len, shape.seq_len))
+
+
 def smoke_variant(name: str) -> ModelConfig:
     """The reference's reduced variant (``repro/configs/__init__.py:
-    smoke_variant``) for the decoder fields this port reads: one pattern
-    cycle (at least 2 layers), d_model 256, 32-wide heads, d_ff <= 512,
-    vocab <= 1024, window <= 64, fp32; 4 experts top-2 of width 64 (one
-    shared expert and one dense head layer where the model has any), and
-    a small MLA."""
+    smoke_variant``): one pattern cycle (at least 2 layers), d_model 256,
+    32-wide heads, d_ff <= 512, vocab <= 1024, window <= 64, fp32; 4
+    experts top-2 of width 64 (one shared expert and one dense head
+    layer where the model has any), a small MLA; at most 2 encoder
+    layers over at most 32 frames, and at most 8 image tokens."""
     cfg = get_config(name)
     if cfg.arch_type == "unet":
         return SMOKE_UNET
-    if cfg.arch_type != "decoder":
-        raise NotImplementedError(
-            f"{name!r} is {cfg.arch_type!r}: encoder-decoder and VLM "
-            f"models are not ported yet (ROADMAP A.13)")
     d_model = min(cfg.d_model, 256)
     num_heads = max(2, min(4, cfg.num_heads))
     # MQA stays MQA, MHA stays MHA, GQA halves
@@ -100,14 +133,19 @@ def smoke_variant(name: str) -> ModelConfig:
         mla=mla,
         lru_width=d_model,
         sliding_window=min(cfg.sliding_window, 64),
+        num_encoder_layers=min(cfg.num_encoder_layers, 2),
+        encoder_seq_len=min(cfg.encoder_seq_len, 32)
+        if cfg.arch_type == "encdec" else cfg.encoder_seq_len,
+        num_image_tokens=min(cfg.num_image_tokens, 8),
         max_seq_len=1024,
         dtype="float32",
         param_dtype="float32",
     )
 
 
-__all__ = ["ARCHS", "ALL_CONFIGS", "CELEBA_UNET", "CIFAR10_UNET",
-           "DECODE_32K", "LONG_500K", "PREFILL_32K", "SMOKE_UNET",
+__all__ = ["ARCHS", "ALL_CONFIGS", "ATTN_GLOBAL", "ATTN_LOCAL",
+           "CELEBA_UNET", "CIFAR10_UNET", "DECODE_32K", "INPUT_SHAPES",
+           "LONG_500K", "PREFILL_32K", "RECURRENT", "RWKV", "SMOKE_UNET",
            "TRAIN_4K", "UNETS", "FLConfig", "InputShape", "MLAConfig",
-           "ModelConfig", "MoEConfig",
-           "get_config", "list_archs", "register_config", "smoke_variant"]
+           "ModelConfig", "MoEConfig", "adapt_for_shape", "get_config",
+           "get_shape", "list_archs", "register_config", "smoke_variant"]

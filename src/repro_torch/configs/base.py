@@ -3,10 +3,9 @@
 
 :class:`ModelConfig` keeps every field of the reference, so a ``cfg``
 dict written into a checkpoint manifest by either package round-trips
-through :func:`config_from_dict` unchanged.  Only the U-Net fields are
-read by the U-Net slices, the decoder fields by the RecurrentGemma
-serving slice; the rest (MoE, MLA, encoder, image tokens) are carried
-for that compatibility.
+through :func:`config_from_dict` unchanged.  The U-Net reads the U-Net
+fields and the transformer stack the rest; the RWKV layer kind is
+carried but not ported.
 """
 from __future__ import annotations
 
@@ -45,7 +44,10 @@ class MLAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Unified model configuration: ``arch_type`` "unet" (the paper's
-    DDPM U-Net) or "decoder" (the causal LM stack)."""
+    DDPM U-Net), "decoder" (the causal LM stack), "encdec" (whisper's
+    encoder and a decoder with cross-attention; the audio frontend is a
+    stub) or "vlm" (image embeddings before the text; the vision
+    frontend is a stub)."""
     name: str
     arch_type: str
     source: str = ""
@@ -130,6 +132,8 @@ TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
 PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
 DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
 LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}
 
 
 _MODEL_TUPLE_FIELDS = ("layer_pattern", "channel_mults", "attn_resolutions")

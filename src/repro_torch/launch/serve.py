@@ -12,10 +12,13 @@ decodes into it in place (``model.decode_``), and its fresh state is a
 one-slot cache: the cache is held once (a full-width MoE model's KV
 cache does not fit twice beside its weights).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
-  (on the reference's smoke variant; ``--arch`` also moonshot-v1-16b-a3b,
-  qwen3-moe-235b-a22b or deepseek-v3-671b; ``--device cpu`` without a
-  card)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
+  (on the reference's smoke variant; ``--arch`` takes every config of
+  ``configs.list_archs()``; ``--device cpu`` without a card)
+
+An encdec model (whisper-base) serves with zeros for ``enc_out``, as the
+reference does: ``model.init_cache`` makes them, and a refill resets a
+slot's rows from the one-slot fresh cache like every other leaf.
 """
 from __future__ import annotations
 
@@ -99,7 +102,7 @@ def serve_requests(params, cfg, *, slots: int, requests: int,
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="recurrentgemma-9b",
+    ap.add_argument("--arch", default="gemma2-2b",
                     choices=sorted(ARCHS))
     ap.add_argument("--batch", type=int, default=4, help="serving slots")
     ap.add_argument("--requests", type=int, default=8)

@@ -41,7 +41,11 @@ def build_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
             p.requires_grad_(True)
         try:
             loss = model.loss_fn(params, cfg, batch, remat=remat)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not read (a parallel block's ln2)
+            # gets a zero gradient, as the reference's grad gives it
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
         finally:
             for p in leaves:
                 p.requires_grad_(False)

@@ -3,7 +3,7 @@ decoder LM on the reduced (smoke) variant of an architecture, one batch
 from the seed trained for ``--steps`` steps, as the reference runs it
 without ``--full``.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-9b --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --steps 10
   (``--device cpu`` without a card: the kernels' plain versions)
 
 ``--full`` and ``--multi-pod`` train the full-size config on the
@@ -29,7 +29,7 @@ from repro_torch.tree import tree_leaves
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="recurrentgemma-9b",
+    ap.add_argument("--arch", default="gemma2-2b",
                     choices=list_archs())
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)

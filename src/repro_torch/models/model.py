@@ -1,7 +1,7 @@
 """Model interface (``repro/models/model.py``): ``init`` and
-``loss_fn`` dispatch on ``cfg.arch_type`` (the U-Net's DDPM loss, the
-decoder's chunked cross-entropy plus its MoE aux loss); the decoder
-serves through ``prefill``, ``init_cache``, ``decode`` and
+``loss_fn`` dispatch on ``cfg.arch_type`` (the U-Net's DDPM loss, a
+transformer's chunked cross-entropy plus its MoE aux loss: decoder,
+encdec or vlm); a transformer serves through ``prefill``, ``init_cache``, ``decode`` and
 ``reset_cache_slots`` (and ``decode_`` and ``reset_cache_slots_``,
 which write into the cache they are given); ``input_specs`` and
 ``make_inputs`` give a shape's inputs."""
@@ -15,6 +15,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.diffusion.ddpm import ddpm_loss
 from repro_torch.diffusion.schedule import linear_schedule
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import dtype_of
 from repro_torch.models.unet import Params, apply_unet, init_unet
 
 
@@ -40,12 +41,12 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ``clients=C``: stacked params and C batches one after another; the
     result is the (C,) per-client losses.
 
-    A decoder's loss is :func:`transformer.chunked_xent` of
-    ``batch["tokens"]`` against ``batch["labels"]`` (-1 ignored), with
-    ``remat`` (the reference's default ``ApplyOptions.remat=True``), plus
-    the MoE layers' load-balance aux loss (0 without MoE layers).  RWKV,
-    encoder-decoder and VLM models, attention soft-capping and parallel
-    blocks are not ported yet (ROADMAP A.13) and raise."""
+    A transformer's loss is :func:`transformer.chunked_xent` of the
+    forward over ``batch`` (``tokens``; a VLM's ``image_embeds``, an
+    encdec model's ``frames``) against ``batch["labels"]`` (-1 ignored),
+    with ``remat`` (the reference's default ``ApplyOptions.remat=True``),
+    plus the MoE layers' load-balance aux loss (0 without MoE layers).
+    RWKV layers are not ported yet (ROADMAP A.13) and raise."""
     if cfg.arch_type != "unet":
         hidden, aux = tfm.forward(params, cfg, batch, remat=remat)
         return tfm.chunked_xent(params, cfg, hidden, batch["labels"],
@@ -66,7 +67,16 @@ def prefill(params: Params, cfg: ModelConfig,
 
 
 def init_cache(params: Params, cfg: ModelConfig, batch: int, seq_len: int):
-    return tfm.init_cache(params, cfg, batch, seq_len)
+    """The decode cache; an encdec model's ``enc_out`` is zeros
+    (B, encoder_seq_len, d) in the activation dtype, as the reference
+    serves it (a caller that has run the encoder passes its output to
+    :func:`transformer.init_cache` instead)."""
+    enc_out = None
+    if cfg.arch_type == "encdec":
+        enc_out = torch.zeros((batch, cfg.encoder_seq_len, cfg.d_model),
+                              dtype=dtype_of(cfg.dtype),
+                              device=params["embed"].device)
+    return tfm.init_cache(params, cfg, batch, seq_len, enc_out=enc_out)
 
 
 def decode(params: Params, cache, cfg: ModelConfig, tokens: torch.Tensor):
@@ -102,8 +112,11 @@ class InputSpec(NamedTuple):
 def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, InputSpec]:
     """Shape and dtype of every model input of ``shape``, as the
     reference's ``input_specs`` gives them: a U-Net's images and labels;
-    a decoder's ``tokens`` (one per row when decoding) and, in training,
-    ``labels``."""
+    a transformer's ``tokens`` (one per row when decoding) and, in
+    training, ``labels`` (B, S); a VLM's ``image_embeds``
+    (B, N_img, d) take the first N_img of the S positions, and an
+    encdec model's ``frames`` are (B, Se, d), both in the activation
+    dtype (the modality frontends are stubs)."""
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
     if cfg.arch_type == "unet":
@@ -113,7 +126,17 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, InputSpec]:
     tfm.stack_plan(cfg)              # raises for what is not ported
     if shape.mode == "decode":
         return {"tokens": InputSpec((B, 1), i32)}
-    specs = {"tokens": InputSpec((B, S), i32)}
+    act = dtype_of(cfg.dtype)
+    specs = {}
+    s_text = S
+    if cfg.arch_type == "vlm":
+        s_text = S - cfg.num_image_tokens
+        specs["image_embeds"] = InputSpec(
+            (B, cfg.num_image_tokens, cfg.d_model), act)
+    if cfg.arch_type == "encdec":
+        specs["frames"] = InputSpec((B, cfg.encoder_seq_len, cfg.d_model),
+                                    act)
+    specs["tokens"] = InputSpec((B, s_text), i32)
     if shape.mode == "train":
         specs["labels"] = InputSpec((B, S), i32)
     return specs

@@ -1,11 +1,15 @@
-"""Decoder stack (``repro/models/transformer.py``), the subset the
-port's decoder LMs run: global and local attention layers, DeepSeek's
-multi-head latent attention (MLA) and RG-LRU recurrent layers, each with
-a dense FFN or a mixture of experts (MoE); the full-sequence forward
-(prefill, and training with ``remat``), the chunked cross-entropy, and
-single-token decode with per-kind caches (ring-buffer KV for windowed
-attention, full KV for global attention, the latent cache for MLA,
-O(1) state for RG-LRU).
+"""Transformer stack (``repro/models/transformer.py``): global and
+local attention layers (GQA/MQA, gemma2's attention soft-capping),
+DeepSeek's multi-head latent attention (MLA) and RG-LRU recurrent
+layers, each with a dense FFN or a mixture of experts (MoE), or with
+command-r's parallel attention and FFN block; whisper's bidirectional
+encoder and the decoder's cross-attention over its output (encdec), and
+the VLM's image embeddings before the token embeddings; the
+full-sequence forward (prefill, and training with ``remat``), the
+chunked cross-entropy, and single-token decode with per-kind caches
+(ring-buffer KV for windowed attention, full KV for global attention,
+the latent cache for MLA, O(1) state for RG-LRU, the encoder output for
+encdec).
 
 Parameters are the reference's tree: ``head`` (unstacked leading
 layers: an MoE model's dense-FFN layers), ``cycles`` (one tree per
@@ -16,25 +20,27 @@ reference scans the cycles with ``lax.scan``; here a Python loop walks
 the stacked leaves' first axis.
 
 On a CUDA tensor the forward's recurrences launch the scan kernel (and
-their gradients its backward kernel) and its causal GQA/MHA attention
-the attention kernel (``models/ops.py:attention``, as the reference's
-Pallas route, with the reference's dense recompute backward); MLA
-attends in plain ops (``models/mla.py``), as the reference's does; the
-dense projections and the expert products are plain ``@`` and ``bmm``,
-as the reference leaves them to XLA outside any kernel, and the decode
-step is plain tensor ops, as the reference's is.  ``remat`` is the
-reference's ``ApplyOptions.remat``: each pattern cycle and each
-cross-entropy chunk runs under ``torch.utils.checkpoint``, so the
-backward recomputes it (its kernels launch again) instead of holding
-its activations; the head layers are not recomputed, as in the
-reference.  RWKV, encoder-decoder and VLM models, attention
-soft-capping (gemma2) and ``parallel_block`` (command-r) raise
+their gradients its backward kernel), and its causal GQA/MHA
+self-attention without soft-capping the attention kernel
+(``models/ops.py:attention``, as the reference's Pallas route, with the
+reference's dense recompute backward).  Everything else attends in plain
+ops (``attention.attend``, in q blocks of ATTN_CHUNK), as the
+reference's route does: soft-capped layers (all of gemma2's), the
+encoder's bidirectional layers, every cross-attention, and MLA
+(``models/mla.py``).  The dense projections and the expert products are
+plain ``@`` and ``bmm``, as the reference leaves them to XLA outside
+any kernel, and the decode step is plain tensor ops, as the reference's
+is.  ``remat`` is the reference's ``ApplyOptions.remat``: each pattern
+cycle, each encoder block and each cross-entropy chunk runs under
+``torch.utils.checkpoint``, so the backward recomputes it (its kernels
+launch again) instead of holding its activations; the head layers are
+not recomputed, as in the reference.  RWKV layers raise
 ``NotImplementedError`` (ROADMAP A.13).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -55,28 +61,16 @@ from repro_torch.tree import tree_map
 Params = Dict[str, Any]
 INT_MAX = torch.iinfo(torch.int32).max
 _ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
-# the reference's ApplyOptions.attn_chunk: MLA's q-block size
+# the reference's ApplyOptions.attn_chunk: the plain route's q-block size
 ATTN_CHUNK = 1024
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "decoder":
-        raise NotImplementedError(f"{cfg.name!r} is {cfg.arch_type!r}: "
-                                  f"encoder-decoder and VLM models are not "
-                                  f"ported yet (ROADMAP A.13)")
     bad = set(cfg.layer_pattern) - {ATTN_GLOBAL, ATTN_LOCAL, RECURRENT}
     if bad:
         raise NotImplementedError(f"{cfg.name!r}: layer kinds {sorted(bad)} "
                                   f"(RWKV) are not ported yet (ROADMAP "
                                   f"A.13)")
-    if cfg.attn_softcap != 0.0:
-        raise NotImplementedError(f"{cfg.name!r}: attention soft-capping "
-                                  f"(gemma2) is not ported yet (ROADMAP "
-                                  f"A.13)")
-    if cfg.parallel_block:
-        raise NotImplementedError(f"{cfg.name!r}: parallel attention and "
-                                  f"FFN blocks (command-r) are not ported "
-                                  f"yet (ROADMAP A.13)")
 
 
 # ===========================================================================
@@ -154,7 +148,11 @@ def init_attn_params(generator: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: int, *,
-               is_moe: bool, dtype=torch.float32, device="cpu") -> Params:
+               is_moe: bool, cross_attn: bool = False, dtype=torch.float32,
+               device="cpu") -> Params:
+    """One layer's params; ``cross_attn`` adds an attention layer's
+    ``ln_cross`` and ``cross`` (an encdec decoder layer).  A parallel
+    block keeps ``ln2``, unused, as the reference's tree does."""
     d = cfg.d_model
     p: Params = {"ln1": torch.zeros((d,), dtype=dtype, device=device)}
     if kind in _ATTN and cfg.mla is not None:
@@ -168,6 +166,9 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: int, *,
     else:
         raise NotImplementedError(f"layer kind {kind} is not ported yet "
                                   f"(ROADMAP A.13)")
+    if cross_attn and kind in _ATTN:
+        p["ln_cross"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["cross"] = init_attn_params(generator, cfg, dtype, device)
     p["ln2"] = torch.zeros((d,), dtype=dtype, device=device)
     if is_moe:
         p["moe"] = moe_lib.init_moe(generator, d, cfg.moe, dtype=dtype,
@@ -184,10 +185,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters with the reference's tree, shapes, dtypes and
     scales (``param_dtype``; ``log_lambda`` and the MoE router fp32),
     drawn from ``generator`` (which must live on ``device``): the head
-    layers, then each pattern position's cycles, then the tail."""
+    layers, then each pattern position's cycles, then the tail, then an
+    encdec model's ``encoder`` (its blocks stacked, no cross-attention,
+    and its final norm)."""
     dtype = dtype_of(cfg.param_dtype)
     plan = stack_plan(cfg)
     kw = dict(dtype=dtype, device=resolve_device(device))
+    cross = cfg.arch_type == "encdec"
     params: Params = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, **kw),
         "final_norm": torch.zeros((cfg.d_model,), **kw),
@@ -197,16 +201,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                        cfg.vocab_size, **kw)
     # head layers: always dense-FFN
     params["head"] = [init_layer(generator, cfg, cfg.layer_pattern[0],
-                                 is_moe=False, **kw)
+                                 is_moe=False, cross_attn=cross, **kw)
                       for _ in range(plan.n_head)]
     params["cycles"] = [
         _stacked(lambda kind=kind: init_layer(
-            generator, cfg, kind, is_moe=_layer_is_moe(cfg, kind), **kw),
-            plan.n_cycles) if plan.n_cycles else None
+            generator, cfg, kind, is_moe=_layer_is_moe(cfg, kind),
+            cross_attn=cross, **kw), plan.n_cycles)
+        if plan.n_cycles else None
         for kind in plan.pattern]
     params["tail"] = [init_layer(generator, cfg, kind,
-                                 is_moe=_layer_is_moe(cfg, kind), **kw)
+                                 is_moe=_layer_is_moe(cfg, kind),
+                                 cross_attn=cross, **kw)
                       for kind in plan.tail_kinds]
+    if cross:
+        params["encoder"] = {
+            "blocks": _stacked(lambda: init_layer(
+                generator, cfg, ATTN_GLOBAL, is_moe=False, **kw),
+                max(cfg.num_encoder_layers, 1)),
+            "final_norm": torch.zeros((cfg.d_model,), **kw)}
     return params
 
 
@@ -230,15 +242,45 @@ def _out_proj(ap, out: torch.Tensor) -> torch.Tensor:
 
 
 def _self_attention(ap, h: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig, *, window: int) -> torch.Tensor:
-    """Causal self-attention over the whole sequence on the attention
-    kernel (GQA expanded in ``ops.attention``), as the reference's
-    Pallas route runs it."""
+                    cfg: ModelConfig, *, window: int,
+                    causal: bool = True) -> torch.Tensor:
+    """Self-attention over the whole sequence, routed as the reference
+    routes it: causal without soft-capping on the attention kernel (GQA
+    expanded in ``ops.attention``), anything else (soft-capped, or
+    bidirectional) through the plain ``attend`` in q blocks of
+    ATTN_CHUNK."""
     q, k, v = _qkv(ap, h, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=True, window=window)
+    if causal and cfg.attn_softcap == 0.0:
+        out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True, window=window)
+    else:
+        out = attn_lib.attend(q, k, v, q_positions=positions,
+                              kv_positions=positions, causal=causal,
+                              window=window, attn_softcap=cfg.attn_softcap,
+                              chunk=ATTN_CHUNK)
+    return _out_proj(ap, out)
+
+
+def _cross_attention(ap, h: torch.Tensor, enc_out: torch.Tensor,
+                     cfg: ModelConfig, *, biases: bool) -> torch.Tensor:
+    """Queries from the decoder's h (B, S, d), keys and values from the
+    encoder's output (B, Se, d), no mask and no RoPE, in plain ``attend``.
+    ``biases``: add the q/k/v biases, as the reference's prefill does; its
+    decode step leaves them out and adds only ``bo``."""
+    B, S, _ = h.shape
+    Se = enc_out.shape[1]
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = h @ ap["wq"], enc_out @ ap["wk"], enc_out @ ap["wv"]
+    if biases and "bq" in ap:
+        q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+    out = attn_lib.attend(
+        q.reshape(B, S, Hq, hd), k.reshape(B, Se, Hkv, hd),
+        v.reshape(B, Se, Hkv, hd),
+        q_positions=torch.arange(S, dtype=torch.int32, device=h.device),
+        kv_positions=torch.arange(Se, dtype=torch.int32, device=h.device),
+        causal=False, window=0, chunk=ATTN_CHUNK)
     return _out_proj(ap, out)
 
 
@@ -249,34 +291,82 @@ def _cast_layer(lp, dtype):
                     and a.dtype != dtype else a, lp)
 
 
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _ffn_or_moe(lp, h2: torch.Tensor, cfg: ModelConfig):
     """The layer's FFN half: (out, aux), aux 0 for a dense FFN."""
     if "moe" in lp:
         return moe_lib.apply_moe(lp["moe"], h2, cfg.moe,
                                  activation=cfg.activation)
-    return (apply_ffn(lp["ffn"], h2, activation=cfg.activation, glu=cfg.glu),
-            torch.zeros((), dtype=torch.float32, device=h2.device))
+    return _ffn_only(lp, h2, cfg), _zero(h2)
+
+
+def _ffn_only(lp, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return apply_ffn(lp["ffn"], h, activation=cfg.activation, glu=cfg.glu)
 
 
 def apply_layer_full(lp: Params, x: torch.Tensor, kind: int,
-                     cfg: ModelConfig, positions: torch.Tensor):
-    """One layer over a full sequence.  Returns (x, aux loss)."""
+                     cfg: ModelConfig, positions: torch.Tensor, *,
+                     enc_out: Optional[torch.Tensor] = None,
+                     causal: bool = True):
+    """One layer over a full sequence.  Returns (x, aux loss).  An
+    attention layer with ``cfg.parallel_block`` adds attention and FFN
+    of one normed input, ``x + attn(h) + ffn(h)``; one with ``cross``
+    attends to ``enc_out`` between its self-attention and its FFN.
+    ``causal=False``: the encoder's bidirectional layers."""
     lp = _cast_layer(lp, x.dtype)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     window = cfg.sliding_window if kind == ATTN_LOCAL else 0
-    if "mla" in lp:
-        x = x + mla_lib.apply_mla(lp["mla"], h, cfg.mla, cfg.num_heads,
-                                  positions, rope_theta=cfg.rope_theta,
-                                  chunk=ATTN_CHUNK, window=window)
-    elif kind in _ATTN:
-        x = x + _self_attention(lp["attn"], h, positions, cfg, window=window)
-    elif kind == RECURRENT:
+    if kind == RECURRENT:
         x = x + rglru_lib.apply_rglru(lp["rec"], h,
                                       conv_width=cfg.conv1d_width)
-    else:
+    elif kind not in _ATTN:
         raise NotImplementedError(f"layer kind {kind} (ROADMAP A.13)")
+    else:
+        if "mla" in lp:
+            attn_out = mla_lib.apply_mla(lp["mla"], h, cfg.mla,
+                                         cfg.num_heads, positions,
+                                         rope_theta=cfg.rope_theta,
+                                         chunk=ATTN_CHUNK, window=window)
+        else:
+            attn_out = _self_attention(lp["attn"], h, positions, cfg,
+                                       window=window, causal=causal)
+        if cfg.parallel_block:
+            return x + attn_out + _ffn_only(lp, h, cfg), _zero(x)
+        x = x + attn_out
+        if "cross" in lp:
+            hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+            x = x + _cross_attention(lp["cross"], hc, enc_out, cfg,
+                                     biases=True)
     out, aux = _ffn_or_moe(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
     return x + out, aux
+
+
+def _encoder_block(lp, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor) -> torch.Tensor:
+    return apply_layer_full(lp, x, ATTN_GLOBAL, cfg, positions,
+                            causal=False)[0]
+
+
+def apply_encoder(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+                  *, remat: bool = False) -> torch.Tensor:
+    """Whisper's encoder: bidirectional global-attention blocks (plain
+    ``attend``) over the frame embeddings (B, Se, d), then its final
+    norm.  ``remat``: each block is recomputed in the backward (the
+    reference's ``jax.checkpoint`` of its scan body)."""
+    enc = params["encoder"]
+    x = frames
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for c in range(enc["blocks"]["ln1"].shape[0]):
+        lp = _cycle(enc["blocks"], c)
+        if remat:
+            x = checkpoint(_encoder_block, lp, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _encoder_block(lp, x, cfg, positions)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
@@ -289,37 +379,51 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
 
 
 def _apply_cycle(cycle_params, x: torch.Tensor, aux: torch.Tensor,
-                 cfg: ModelConfig, positions: torch.Tensor):
+                 cfg: ModelConfig, positions: torch.Tensor,
+                 enc_out: Optional[torch.Tensor]):
     """One repetition of the layer pattern: (x, aux) -> (x, aux)."""
     for lp, kind in zip(cycle_params, cfg.layer_pattern):
-        x, a = apply_layer_full(lp, x, kind, cfg, positions)
+        x, a = apply_layer_full(lp, x, kind, cfg, positions, enc_out=enc_out)
         aux = aux + a
     return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, remat: bool = False):
-    """Full-sequence forward: ``batch["tokens"]`` (B, S) -> (final-normed
-    hidden (B, S, d), aux loss: the MoE layers' summed load-balance
-    terms, fp32 0-d).  ``remat``: each pattern cycle is recomputed in the
-    backward (the reference's ``jax.checkpoint`` of its scan body)."""
+    """Full-sequence forward -> (final-normed hidden (B, S, d), aux loss:
+    the MoE layers' summed load-balance terms, fp32 0-d).
+
+    ``batch["tokens"]`` (B, S_text); a VLM's ``image_embeds``
+    (B, N_img, d) go before the token embeddings, in the activation
+    dtype (S = N_img + S_text); an encdec model's ``frames`` (B, Se, d)
+    run through :func:`apply_encoder`, whose output every decoder layer
+    attends to.  ``remat``: each pattern cycle and each encoder block is
+    recomputed in the backward (the reference's ``jax.checkpoint`` of
+    its scan bodies)."""
     plan = stack_plan(cfg)
     x = embed_tokens(params, cfg, batch["tokens"])
+    enc_out = None
+    if cfg.arch_type == "vlm":
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+    elif cfg.arch_type == "encdec":
+        enc_out = apply_encoder(params, batch["frames"].to(x.dtype), cfg,
+                                remat=remat)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
     for lp in params["head"]:
-        x, a = apply_layer_full(lp, x, cfg.layer_pattern[0], cfg, positions)
+        x, a = apply_layer_full(lp, x, cfg.layer_pattern[0], cfg, positions,
+                                enc_out=enc_out)
         aux = aux + a
     for c in range(plan.n_cycles):
         cyc = [_cycle(params["cycles"][pos], c)
                for pos in range(len(plan.pattern))]
         if remat:
             x, aux = checkpoint(_apply_cycle, cyc, x, aux, cfg, positions,
-                                use_reentrant=False)
+                                enc_out, use_reentrant=False)
         else:
-            x, aux = _apply_cycle(cyc, x, aux, cfg, positions)
+            x, aux = _apply_cycle(cyc, x, aux, cfg, positions, enc_out)
     for lp, kind in zip(params["tail"], plan.tail_kinds):
-        x, a = apply_layer_full(lp, x, kind, cfg, positions)
+        x, a = apply_layer_full(lp, x, kind, cfg, positions, enc_out=enc_out)
         aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -409,9 +513,12 @@ def _layer_state(cfg: ModelConfig, kind: int, batch: int, seq_len: int,
 
 
 def init_cache(params: Params, cfg: ModelConfig, batch: int,
-               seq_len: int) -> Params:
+               seq_len: int, *,
+               enc_out: Optional[torch.Tensor] = None) -> Params:
     """Decode cache matching the stack plan, on the params' device;
-    cycle states carry (n_cycles, B, ...) leaves."""
+    cycle states carry (n_cycles, B, ...) leaves.  An encdec model's
+    cache holds ``enc_out`` (B, Se, d), which its cross-attention reads
+    at every step (required)."""
     plan = stack_plan(cfg)
     dtype = dtype_of(cfg.dtype)
     device = params["embed"].device
@@ -419,13 +526,18 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int,
     def state(kind):
         return _layer_state(cfg, kind, batch, seq_len, dtype, device)
 
-    return {
+    cache = {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
         "head": [state(cfg.layer_pattern[0]) for _ in range(plan.n_head)],
         "cycles": [_stacked(lambda kind=kind: state(kind), plan.n_cycles)
                    if plan.n_cycles else None for kind in plan.pattern],
         "tail": [state(kind) for kind in plan.tail_kinds],
     }
+    if cfg.arch_type == "encdec":
+        if enc_out is None:
+            raise ValueError("an encdec decode cache needs enc_out")
+        cache["enc_out"] = enc_out
+    return cache
 
 
 def reset_cache_slots_(cache: Params, fresh: Params,
@@ -453,6 +565,8 @@ def reset_cache_slots_(cache: Params, fresh: Params,
     tree_map(put(0), cache["tail"], fresh["tail"])
     # cycle-stacked states carry (n_cycles, B, ...) leaves
     tree_map(put(1), cache["cycles"], fresh["cycles"])
+    if "enc_out" in cache:
+        put(0)(cache["enc_out"], fresh["enc_out"])
     return cache
 
 
@@ -492,10 +606,13 @@ def _decode_self_attention_(ap, cache, h: torch.Tensor, pos: torch.Tensor,
 
 
 def apply_layer_decode_(lp: Params, state: Params, x: torch.Tensor,
-                        kind: int, cfg: ModelConfig,
-                        pos: torch.Tensor) -> torch.Tensor:
+                        kind: int, cfg: ModelConfig, pos: torch.Tensor, *,
+                        enc_out: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """One layer, one token.  x (B, 1, d).  Writes the layer's new state
-    into ``state`` in place and returns x."""
+    into ``state`` in place and returns x.  The cross-attention over
+    ``enc_out`` leaves out the q/k/v biases, as the reference's decode
+    step does."""
     lp = _cast_layer(lp, x.dtype)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     window = cfg.sliding_window if kind == ATTN_LOCAL else 0
@@ -513,7 +630,13 @@ def apply_layer_decode_(lp: Params, state: Params, x: torch.Tensor,
             state[key].copy_(t)
     else:
         raise NotImplementedError(f"layer kind {kind} (ROADMAP A.13)")
+    if kind in _ATTN and cfg.parallel_block:
+        return x + out + _ffn_only(lp, h, cfg)
     x = x + out
+    if "cross" in lp:
+        hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        x = x + _cross_attention(lp["cross"], hc, enc_out, cfg,
+                                 biases=False)
     out, _ = _ffn_or_moe(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
     return x + out
 
@@ -526,15 +649,17 @@ def decode_step_(params: Params, cache: Params, cfg: ModelConfig,
     plan = stack_plan(cfg)
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
+    kw = dict(enc_out=cache.get("enc_out"))
     for lp, st in zip(params["head"], cache["head"]):
-        x = apply_layer_decode_(lp, st, x, cfg.layer_pattern[0], cfg, pos)
+        x = apply_layer_decode_(lp, st, x, cfg.layer_pattern[0], cfg, pos,
+                                **kw)
     for c in range(plan.n_cycles):
         for i, kind in enumerate(plan.pattern):
             x = apply_layer_decode_(_cycle(params["cycles"][i], c),
                                     _cycle(cache["cycles"][i], c), x, kind,
-                                    cfg, pos)
+                                    cfg, pos, **kw)
     for lp, st, kind in zip(params["tail"], cache["tail"], plan.tail_kinds):
-        x = apply_layer_decode_(lp, st, x, kind, cfg, pos)
+        x = apply_layer_decode_(lp, st, x, kind, cfg, pos, **kw)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache["pos"] = pos + 1
     return logits_from_hidden(params, cfg, x)

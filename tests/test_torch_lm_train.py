@@ -31,6 +31,7 @@ import torch
 from repro import checkpoint as jax_checkpoint
 from repro.configs import smoke_variant as jax_smoke_variant
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.configs.base import DECODE_32K as J_DECODE_32K
 from repro.configs.base import PREFILL_32K as J_PREFILL_32K
 from repro.configs.base import TRAIN_4K as J_TRAIN_4K
@@ -575,9 +576,9 @@ def test_input_specs_match_jax():
         for k, v in model.input_specs(CFG, small).items()}
     assert 0 <= int(x["tokens"].min()) and int(x["tokens"].max()) \
         < CFG.vocab_size
-    assert list_archs() == sorted([ARCH, "deepseek-v3-671b",
-                                   "moonshot-v1-16b-a3b",
-                                   "qwen3-moe-235b-a22b"])
+    # the reference's architectures less rwkv6-7b, whose layer kind is
+    # the one the port does not have yet
+    assert list_archs() == [a for a in jax_list_archs() if a != "rwkv6-7b"]
 
 
 def test_train_cli_trains_and_saves_a_reference_checkpoint(tmp_path):

@@ -31,6 +31,7 @@ from repro.core.selection import random_selection as jrandom_selection
 from repro.core.selection import select_edge as jselect_edge
 from repro.core.sh_score import AccumulatedDistribution as JAccumulated
 from repro.core.sh_score import sh_score as jsh_score
+from repro.core import hfl as jhfl
 from repro.core.hfl import FedPhD as JFedPhD
 from repro.core.pruning import build_groups as jbuild_groups
 from repro.core.pruning import compact as jcompact
@@ -153,6 +154,13 @@ def _fast_reference_jit(mp, options=FAST_COMPILE):
     mp.setattr(jax, "jit", functools.partial(jax.jit,
                                              compiler_options=options))
     mp.setattr(jagg, "weighted_average", _jitted_weighted_average)
+
+
+def _l2_scores_o0(params, groups, **kw):
+    """The reference's L2 prune scores as one program: eagerly it
+    compiles one per op and group shape."""
+    return jax.jit(lambda p: jl2_scores(p, groups, **kw),
+                   compiler_options=O0)(params)
 
 
 @functools.partial(jax.jit, compiler_options=O0)
@@ -303,7 +311,7 @@ def test_compact_matches_jax(np_params):
     jp = _jtree(np_params)
     tp = params_from_jax(np_params, CPU)
     jg, tg = jbuild_groups(JCFG, jp), unet_groups(CFG, tp)
-    jm = jmake_masks(jl2_scores(jp, jg, backend="xla"), jg, 0.44)
+    jm = jmake_masks(_l2_scores_o0(jp, jg, backend="xla"), jg, 0.44)
     tm = make_masks(l2_scores(tp, tg), tg, 0.44)
     for g in tg:
         k = int(tm[g.name].sum())
@@ -346,8 +354,12 @@ def test_adam_three_steps_with_clip_matches_jax():
     jp, js = _jtree(params), jadam_init(_jtree(params))
     tp = params_from_jax(params, CPU)
     ts = adam_init(tp)
+    # the reference's update as its trainers run it, under jit: one
+    # program, where eagerly each op compiles on its own
+    jupdate = jax.jit(functools.partial(jadam_update, lr=1e-2,
+                                        grad_clip=1.0), compiler_options=O0)
     for g in grads:
-        jp, js = jadam_update(_jtree(g), js, jp, lr=1e-2, grad_clip=1.0)
+        jp, js = jupdate(_jtree(g), js, jp)
         tp, ts = adam_update(params_from_jax(g, CPU), ts, tp, lr=1e-2,
                              grad_clip=1.0)
     assert int(ts.step) == int(js.step) == 3
@@ -602,6 +614,7 @@ def runs(np_params):
         # overwrite
         mp.setattr(jmodel, "init", lambda rng, cfg: _jtree(np_params))
         _fast_reference_jit(mp)
+        mp.setattr(jhfl, "l2_scores", _l2_scores_o0)
         ref = JFedPhD(JCFG, JFLConfig(**FL_KW), _clients(jdata, jclient),
                       rng_seed=0, engine="sequential")
         ref_step_sparse = ref.step_sparse

@@ -4,7 +4,7 @@
   python3 tools/chip_phases.py [memory] [baselines] [centralized] [bf16]
                                [faults] [quant] [quantmem] [obs] [sweep]
                                [lmtrain] [lmprofile] [lmgrad] [moe]
-                               [moeprofile] [check]
+                               [moeprofile] [dense] [denseprofile] [check]
 
 Builds the kernels, then runs the named phases of ``chip_smoke.py`` in
 the order given (default: all): ``memory`` is
@@ -23,10 +23,15 @@ step under ``torch.profiler`` (its table in
 prefill and serving, the three MoE/MLA configs' prefill against decode
 at depth 4, moonshot's train step), ``moeprofile`` the same with one
 more moonshot prefill and 8 decode steps under ``torch.profiler``
-(tables in ``build/chip_phases/moe_*_profile.txt``), and
-``check`` (last) holds every matmul, attention, group-L2 and scan
-(forward and backward) shape the phases before it launched against the
-plain versions (``check_matmul``, ``check_attention``,
+(tables in ``build/chip_phases/moe_*_profile.txt``), ``dense`` is
+``dense_phases`` (command-r-35b's full-depth prefill and serving, the
+five dense-extras configs' prefill against decode, gemma2-2b's
+full-depth train step), ``denseprofile`` the same with one more
+command-r prefill, 8 decode steps and one more gemma2 train step under
+``torch.profiler`` (tables in ``build/chip_phases/dense_*_profile.txt``), and
+``check`` (last) holds every matmul, attention (in its dtype and the
+other), group-L2 and scan (forward and backward) shape the phases
+before it launched against the plain versions (``check_matmul``, ``check_attention``,
 ``check_group_l2``, ``check_scan``, ``check_scan_backward``).  A failed check is printed and
 the run goes on to
 the next phase, where ``chip_smoke.py`` stops; the last line lists the
@@ -47,7 +52,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("memory", "baselines", "centralized", "bf16", "faults", "quant",
           "quantmem", "obs", "sweep", "lmtrain", "lmprofile", "lmgrad",
-          "moe", "moeprofile", "check")
+          "moe", "moeprofile", "dense", "denseprofile", "check")
 
 
 def main(argv) -> int:
@@ -131,11 +136,13 @@ def main(argv) -> int:
                     profile=phase == "lmprofile"))
             elif phase == "lmgrad":
                 cs.lm_grad_phase(dev, counters)
-            elif phase in ("moe", "moeprofile"):
-                for t in cs.moe_phases(
+            elif phase in ("moe", "moeprofile", "dense", "denseprofile"):
+                phases = cs.moe_phases if phase.startswith("moe") \
+                    else cs.dense_phases
+                for t in phases(
                         dev, counters, zero,
                         profile_dir=os.path.join(ROOT, "build", "chip_phases")
-                        if phase == "moeprofile" else None).values():
+                        if phase.endswith("profile") else None).values():
                     cs.merge_tally(tally, t)
             elif phase == "check" and tally:
                 mm, dx = tally.get("block_masked_matmul", {}), \
@@ -149,8 +156,11 @@ def main(argv) -> int:
                 gen.manual_seed(0)
                 rows = []
                 mm_err = cs.check_matmul(cases, gen, dev, rows.append)
-                att = [((k[0], k[1], k[2], k[3]), k[4], k[5], k[6], k)
-                       for k in tally.get("flash_attention", {})]
+                att = [((k[0], k[1], k[2], k[3]), k[4], k[5], dt,
+                        k if dt == k[6] else None)
+                       for k in tally.get("flash_attention", {})
+                       for dt in (k[6], "bfloat16" if k[6] == "float32"
+                                  else "float32")]
                 att_err = cs.check_attention(att, gen, dev, rows.append)
                 l2_err = cs.check_group_l2(
                     sorted(tally.get("group_l2_norms", {})), gen, dev,
