@@ -127,6 +127,25 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             (2,614,222,080 params), bf16 over an fp32 master, remat,
             B = 1, S = 4096: finite falling losses, 0 attention launches
             (the soft-capped route), params their master's cast;
+7r. rwkv_prefill  the full 32-layer rwkv6-7b (7,576,621,056 params,
+            64 WKV heads of 64, d_ff 14,336, 65,536-token vocab) in bf16
+            with random weights from the port's init, B = 2, S = 4096:
+            one warm-up and LM_TIMED timed prefills, exactly one WKV
+            launch a layer at (2, 4096, 64, 64) and no other kernel,
+            MODEL_FLOPS and model TFLOP/s, the peak above the weights;
+7s. rwkv_serve  ``serve_requests`` on the same model with LM_SERVE:
+            exactly one one-token WKV launch a layer and decode step (the
+            state written in place), no other kernel;
+7t. rwkv_consistency  rwkv6-7b at full width cut to 4 layers, fp32:
+            the prefill's last logits on the exact route and on the
+            chunked route (``wkv_chunk`` 64, plain ops, no launch)
+            against decode after the same 256 tokens, within RWKV_TOL
+            and RWKV_CHUNK_TOL of max|logit|;
+7u. rwkv_train  ``build_train_step`` on rwkv6-7b cut to 8 layers, bf16
+            over an fp32 master, remat, B = 1, S = 4096: finite falling
+            losses, exactly 2 WKV forward launches (with remat's
+            recompute) and one backward a layer and step, params their
+            master's cast;
 7b. experiment  ``repro_torch.experiment.runner.main`` in process with
             ``--preset paper --eval-every 1``: full-width CIFAR10_UNET,
             20 clients of 256 cifar10-like images (2 classes each), 2
@@ -226,7 +245,9 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             S = 1000 and S = 16, and the scan on a ragged shape and with a
             in [0.999, 1), and the scan's backward at each shape
             ``lm_train`` launched it with, S = 1000 with W = 999 and a in
-            [0.999, 1), in the dtype each ran (fp32, TF32 off) and in
+            [0.999, 1), the WKV kernel and its backward at each shape the
+            rwkv phases launched them with and at ragged shapes with fast
+            and underflowing decays (WKV_DECAYS), in the dtype each ran (fp32, TF32 off) and in
             bf16 (or fp32) beside it, each with its tolerance and its time
             beside the plain version, the library call (none computes the
             scan or its gradient) and the bound.  A matmul launch that splits K runs twice
@@ -240,7 +261,9 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
             both alike and always for group-L2.  The scan and its
             backward must equal their plain loops bitwise in every case;
             on TMA-addressable rows the SIMT kernel is timed and checked
-            beside the TMA one;
+            beside the TMA one.  The WKV kernel's output, state and six
+            gradients must be within WKV_TOL of the plain loop's (sums
+            in another order), and its in-place form bitwise its other;
 9. forward  one full-width U-Net forward through the kernels against the
             same forward through the plain versions (on CPU copies of the
             weights and inputs, so device dispatch picks them), dense and
@@ -274,8 +297,8 @@ int8 uplink over the paper preset's round, its 20 error-feedback rows
 on the card, in chunks of ``client_chunk``'s k with the uplink counted.
 
 Every kernel's counters (``.launches``, the per-shape ``.shapes``, the
-matmul's ``.dx_shapes``, and group-L2's and the scan's ``.bwd_launches``
-and ``.bwd_shapes``) are set to 0 just before each serving run, each
+matmul's ``.dx_shapes``, and group-L2's, the scan's and WKV's
+``.bwd_launches`` and ``.bwd_shapes``) are set to 0 just before each serving run, each
 training run, each LM run, each experiment run, each baselines run,
 each faults and quant run and each in-process sweep (the killed and
 resumed pair counted as one), and read just after it.  Group-L2
@@ -287,7 +310,9 @@ serving run once.
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  In the kernels line each kernel's
 main path (``MAIN_PATHS``) is the training run, the system's own path,
-for the three U-Net kernels and the LM prefill for the scan:
+for the three U-Net kernels, the LM prefill for the scan and
+``rwkv_prefill`` for WKV (``wkv6_backward``, its backward, on
+``rwkv_train``):
 ``launches`` is its count there, and ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over its launches of each
 shape's time (count x time per launch; ``library_ms`` is null where no
@@ -368,14 +393,43 @@ DENSE_TRAIN_ARCH = "gemma2-2b"
 DENSE_PATHS = ("dense_prefill", "dense_serve") + tuple(
     f"dense_consistency_{label}" for label, _, _ in DENSE_CONSISTENCY) + (
     "dense_train",)
+# phases 7r-7u: rwkv6-7b at full width and depth (prefill, serving), at
+# full width cut to RWKV_DEPTH layers in fp32 (prefill against decode on
+# the exact and the chunked route), its train step at RWKV_TRAIN_DEPTH
+RWKV_ARCH = "rwkv6-7b"
+RWKV_DEPTH, RWKV_CONSISTENCY_SEQ = 4, 256
+RWKV_CHUNK = 64                  # the chunked route's wkv_chunk
+# the exact route's prefill against decode, x max|decode logit|: fp32,
+# TF32 off, GEMMs over 256 rows against GEMVs (and the WKV kernel's
+# 256-step launch against its one-step ones) in other summation orders,
+# carried through the state's sums over the sequence; LM_TOL, as the
+# RG-LRU's recurrence is held (DENSE_TOL's 1e-5 is not met: 2.3e-5
+# measured, PERF.md)
+RWKV_TOL = LM_TOL
+# the chunked route against decode: the same, and its clamp of
+# log-cumulative decays at +-25, which the init's w ~ 0.99 stay far from
+RWKV_CHUNK_TOL = 1e-4
+# bf16 over an fp32 master: 16 B a param, 36.8e9 B at 8 layers
+RWKV_TRAIN_DEPTH = 8
+RWKV_PATHS = ("rwkv_prefill", "rwkv_serve", "rwkv_consistency",
+              "rwkv_train")
+# the WKV kernel against its plain loop, x max|plain| of each output:
+# fp32 sums over K in another order, carried through the state for S
+# steps
+WKV_TOL = 1e-4
+# w = exp(-exp(x)), x uniform in: the init's range (w ~ 0.99), w0 near 0
+# (w ~ 0.07-0.4), and decays that underflow (w < 1e-8, 0 past x ~ 4.5)
+WKV_DECAYS = {"init": (-7.0, -4.0), "fast": (-0.1, 0.9),
+              "underflow": (3.0, 5.0)}
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
 BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "experiment", "baselines",
                                 "faults", "quant", "sweep")
 PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + MOE_PATHS \
-    + DENSE_PATHS + BACKWARD_PATHS[2:]
+    + DENSE_PATHS + RWKV_PATHS + BACKWARD_PATHS[2:]
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
-              "group_l2_norms": "train", "rglru_scan": "lm_prefill"}
+              "group_l2_norms": "train", "rglru_scan": "lm_prefill",
+              "wkv6": "rwkv_prefill"}
 TRAIN_BATCH = 32
 TRAIN_CLIENTS = 4
 TRAIN_LR = 2e-4
@@ -495,6 +549,7 @@ TPU_KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py:74",
     "group_l2_norms": "src/repro/kernels/group_l2_norms/group_l2_norms.py:19",
     "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:41",
+    "wkv6": "no TPU kernel: lax.scan at src/repro/models/rwkv6.py:67",
 }
 SOURCES = {
     "block_masked_matmul": "src/repro_torch/kernels/block_masked_matmul/"
@@ -504,6 +559,7 @@ SOURCES = {
     "group_l2_norms": "src/repro_torch/kernels/group_l2_norms/csrc/"
                       "group_l2_norms.cu",
     "rglru_scan": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+    "wkv6": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
 }
 TIMES = ("ms", "plain_ms", "library_ms", "bound_ms")
 
@@ -940,6 +996,129 @@ def check_scan_backward(cases, gen, dev, log):
                 f"{dtype_name}: a kernel differs from the plain loop's bits")
 
 
+def _wkv_inputs(B, S, H, K, decay, gen, dev):
+    """r, k, v and the state standard normal, u 0.5 N, w = exp(-exp(x))
+    with x uniform in WKV_DECAYS[decay], all fp32 on ``dev``."""
+    import torch
+    lo, hi = WKV_DECAYS[decay]
+    n = (B, S, H, K)
+    r, k, v = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    w = torch.exp(-torch.exp(lo + (hi - lo) * torch.rand(
+        n, generator=gen, device=dev)))
+    u = 0.5 * torch.randn((H, K), generator=gen, device=dev)
+    st = torch.randn((B, H, K, K), generator=gen, device=dev)
+    return r, k, v, w, u, st
+
+
+def check_wkv(cases, gen, dev, log):
+    """cases: ((B, S, H, K), decay, tally key or None); inputs from
+    :func:`_wkv_inputs`.  The kernel's output and new state each within
+    WKV_TOL of the plain loop's max; the in-place (decode) form bitwise
+    the same.  Returns (the largest error, the largest relative to its
+    output's max)."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops as wkv
+    worst, worst_rel = 0.0, 0.0
+    for (B, S, H, K), decay, key in cases:
+        r, k, v, w, u, st = _wkv_inputs(B, S, H, K, decay, gen, dev)
+        out, new = wkv.wkv6(r, k, v, w, u, st)
+        given = st.clone()
+        out1, _ = wkv.wkv6(r, k, v, w, u, given, inplace=True)
+        want_out, want_new = wkv.wkv6_plain(r, k, v, w, u, st)
+        torch.cuda.synchronize()
+        err = float((out - want_out).abs().max())
+        err_state = float((new - want_new).abs().max())
+        scale = float(want_out.abs().max())
+        scale_state = float(want_new.abs().max())
+        ok = torch.isfinite(out).all() and torch.isfinite(new).all()
+        # r, k, v, w and out a (B, S, H, K) stream each, u, the state in
+        # and out; three multiply-adds a state element and step
+        elems = B * S * H * K
+        b_ms, b_by = bound_ms(6.0 * elems * K, 4 * (5 * elems + H * K
+                                                    + 2 * B * H * K * K),
+                              "float32")
+        row = {"kernel": "wkv6", "key": key, "B": B, "S": S, "H": H, "K": K,
+               "decay": decay, "max_abs_err": err, "max_abs_plain": scale,
+               "tol": WKV_TOL * scale, "state_err": err_state,
+               "state_plain": scale_state,
+               "inplace_bitwise": bool(torch.equal(out1, out)
+                                       and torch.equal(given, new)),
+               "ms": time_ms(lambda: wkv.wkv6(r, k, v, w, u, st)),
+               # a Python loop of S steps, a few launches each
+               "plain_ms": time_ms(lambda: wkv.wkv6_plain(r, k, v, w, u, st),
+                                   iters=2),
+               # no PyTorch call computes the WKV recurrence
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        log(row)
+        what = f"wkv6 {(B, S, H, K)} decay {decay}"
+        require(bool(ok) and err <= WKV_TOL * scale
+                and err_state <= WKV_TOL * scale_state,
+                f"{what}: err {err} (state {err_state}) > {WKV_TOL} x "
+                f"{scale} ({scale_state})")
+        require(row["inplace_bitwise"],
+                f"{what}: the in-place launch differs from the other")
+        worst = max(worst, err, err_state)
+        worst_rel = max(worst_rel, err / scale, err_state / scale_state)
+    # what the kernel does not take is refused, not rerouted
+    r, k, v, w, u, st = _wkv_inputs(1, 8, 2, 48, "init", gen, dev)
+    for what, args in (("K = 48", (r, k, v, w, u, st)),
+                       ("bf16", (r.bfloat16(), k, v, w, u, st))):
+        try:
+            wkv.wkv6(*args)
+        except ValueError:
+            continue
+        raise Failed(f"wkv6 launched on {what}")
+    return worst, worst_rel
+
+
+def check_wkv_backward(cases, gen, dev, log):
+    """cases as :func:`check_wkv`, with dout and d(new state) standard
+    normal: each of the six gradients within WKV_TOL of the plain
+    backward's max of that gradient.  Returns (the largest error, the
+    largest relative to its gradient's max)."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops as wkv
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    worst, worst_rel = 0.0, 0.0
+    for (B, S, H, K), decay, key in cases:
+        r, k, v, w, u, st = _wkv_inputs(B, S, H, K, decay, gen, dev)
+        dout = torch.randn((B, S, H, K), generator=gen, device=dev)
+        dst = torch.randn((B, H, K, K), generator=gen, device=dev)
+        args = (r, k, v, w, u, st, dout, dst)
+        got = wkv.wkv6_backward(*args)
+        want = wkv.wkv6_backward_plain(*args)
+        torch.cuda.synchronize()
+        errs = {n: float((g - x).abs().max()) for n, g, x in
+                zip(names, got, want)}
+        scales = {n: float(x.abs().max()) for n, x in zip(names, want)}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        # r, k, v, w and dout read, dr, dk, dv and dw written (B, S, H, K
+        # each), u, du, the state, d(new state) and its gradient; the
+        # state replayed and the adjoint carried (a multiply-add an
+        # element each), one for each of dr, dk, dv and dw
+        elems = B * S * H * K
+        b_ms, b_by = bound_ms(12.0 * elems * K, 4 * (
+            9 * elems + 2 * H * K + 3 * B * H * K * K), "float32")
+        row = {"kernel": "wkv6", "role": "bwd", "key": key, "B": B, "S": S,
+               "H": H, "K": K, "decay": decay, "finite": finite,
+               "max_abs_err": max(errs.values()), "errors": errs,
+               "max_abs_plain": scales, "tol_rel": WKV_TOL,
+               "ms": time_ms(lambda: wkv.wkv6_backward(*args)),
+               "plain_ms": time_ms(lambda: wkv.wkv6_backward_plain(*args),
+                                   iters=2),
+               # no PyTorch call computes the recurrence's gradient
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        log(row)
+        bad = [n for n in names if not errs[n] <= WKV_TOL * scales[n]]
+        require(finite and not bad,
+                f"wkv6 backward {(B, S, H, K)} decay {decay}: {bad} past "
+                f"{WKV_TOL} x their max (errors {errs}, max {scales})")
+        worst = max([worst] + list(errs.values()))
+        worst_rel = max([worst_rel] + [errs[n] / scales[n] for n in names
+                                       if scales[n]])
+    return worst, worst_rel
+
+
 def ptxas_summary(log: str):
     """Each compiled kernel's registers and spill stores, from nvcc's
     ``-Xptxas=-v`` report."""
@@ -1003,13 +1182,15 @@ def add_totals(a, b):
 
 def tally_of(counters):
     """A run's kernel tallies: kernel -> {shape key: launches}, with the
-    matmul's dx launches under "block_masked_matmul_dx" and group-L2's
-    backward under "group_l2_norms_bwd"."""
+    matmul's dx launches under "block_masked_matmul_dx", group-L2's
+    backward under "group_l2_norms_bwd" and the scan's and WKV's under
+    "rglru_scan_bwd" and "wkv6_bwd"."""
     tally = {k: dict(fn.shapes) for k, fn in counters.items()}
     tally["block_masked_matmul_dx"] = dict(
         counters["block_masked_matmul"].dx_shapes)
     tally["group_l2_norms_bwd"] = dict(counters["group_l2_norms"].bwd_shapes)
     tally["rglru_scan_bwd"] = dict(counters["rglru_scan"].bwd_shapes)
+    tally["wkv6_bwd"] = dict(counters["wkv6"].bwd_shapes)
     return tally
 
 
@@ -1082,9 +1263,12 @@ def lm_prefill_phase(cfg, params, dev, counters, zero_counters):
 
 
 def lm_serve_phase(cfg, params, dev, counters, zero_counters,
-                   phase="lm_serve"):
-    """``serve_requests`` with LM_SERVE; returns the run's tallies (all
-    empty: the decode step launches no kernel of the port).  ``phase``
+                   phase="lm_serve", per_step=None):
+    """``serve_requests`` with LM_SERVE; returns the run's tallies.
+    ``per_step``: kernel -> the launches each decode step must make
+    (rwkv6-7b's WKV, once a layer); every other kernel of the port, and
+    every kernel of a model without ``per_step``, must launch 0 times
+    (the decode step is plain tensor ops, as the reference's).  ``phase``
     names the line and the checks."""
     import numpy as np
     import torch
@@ -1116,8 +1300,11 @@ def lm_serve_phase(cfg, params, dev, counters, zero_counters,
             f"{want}")
     require(all(0 <= t < cfg.vocab_size for t in toks),
             f"{phase}: a token outside [0, vocab)")
-    require(not any(launches.values()),
-            f"{phase}: the decode loop launched a kernel: {launches}")
+    want_launches = {k: len(steps) * (per_step or {}).get(k, 0)
+                     for k in launches}
+    require(launches == want_launches,
+            f"{phase}: the decode loop launched {launches}, want "
+            f"{want_launches} ({per_step or 'no kernel'} a step)")
     return tally
 
 
@@ -1971,6 +2158,288 @@ def dense_phases(dev, counters, zero_counters, profile_dir=None):
 
 
 # ---------------------------------------------------------------------------
+# phases 7r-7u: RWKV-6
+# ---------------------------------------------------------------------------
+
+def wkv_key(B, S, cfg):
+    """The WKV wrapper's shape key of a launch over (B, S) tokens."""
+    return (B, S, cfg.num_heads, cfg.head_dim, "float32")
+
+
+def rwkv_prefill_phase(cfg, params, dev, counters, zero_counters):
+    """Full-width, full-depth RWKV_ARCH prefill: one warm-up and
+    LM_TIMED timed prefills of B = 2, S = 4096; exactly one WKV launch a
+    layer at (2, 4096, 64, 64) and no other kernel.  Returns the run's
+    tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.metrics import flops
+
+    step = build_prefill_step(cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (LM_BATCH, LM_SEQ))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    times = []
+    for _ in range(1 + LM_TIMED):
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    runs = 1 + LM_TIMED
+    med = float(np.median(times[1:]))
+    work = flops.model_flops(cfg, InputShape("rwkv_prefill", LM_SEQ,
+                                             LM_BATCH, "prefill"))
+    finite = bool(torch.isfinite(logits).all())
+    key = wkv_key(LM_BATCH, LM_SEQ, cfg)
+    peak = torch.cuda.max_memory_allocated(dev)
+    emit("rwkv_prefill", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, batch=LM_BATCH, seq=LM_SEQ, cut="none",
+         heads=cfg.num_heads, head_dim=cfg.head_dim,
+         params=flops.count_params_analytic(cfg),
+         param_bytes=tensor_bytes(params), model_flops=work,
+         warmup_ms=times[0] * 1e3, prefill_ms=[t * 1e3 for t in times[1:]],
+         prefill_ms_median=med * 1e3, tokens_per_s=LM_BATCH * LM_SEQ / med,
+         model_tflops_per_s=work / med / 1e12, peak_mem_bytes=peak,
+         resident_bytes=resident, peak_over_resident_bytes=peak - resident,
+         prefills=runs, launches=launches,
+         wkv_shapes={str(k): v for k, v in tally["wkv6"].items()},
+         logits_shape=list(logits.shape), finite=finite,
+         max_abs_logit=float(logits.float().abs().max()))
+    require(tally["wkv6"] == {key: cfg.num_layers * runs},
+            f"rwkv_prefill: WKV launches {tally['wkv6']} over {runs} "
+            f"prefills, want {cfg.num_layers} a prefill at {key}")
+    require(all(n == 0 for k, n in launches.items() if k != "wkv6"),
+            f"rwkv_prefill: another kernel was launched: {launches}")
+    require(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and finite,
+            f"rwkv_prefill: logits {tuple(logits.shape)}, finite={finite}")
+    return tally
+
+
+def rwkv_consistency_phase(dev, counters, zero_counters):
+    """RWKV_ARCH at full width cut to RWKV_DEPTH layers, fp32 (TF32 off):
+    the prefill's last logits on the exact route (one WKV launch a layer
+    over the RWKV_CONSISTENCY_SEQ tokens) and on the chunked route
+    (``wkv_chunk`` RWKV_CHUNK, plain tensor ops, no launch) against the
+    decode logits after the same tokens one at a time (one one-token WKV
+    launch a layer and token, the state written in place), within
+    RWKV_TOL and RWKV_CHUNK_TOL of max|logit|.  Returns the run's
+    tallies (the exact prefill's and the decode's launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv6 import ops as wkv
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.metrics import flops
+    from repro_torch.models import model
+
+    full = get_config(RWKV_ARCH)
+    cfg = full.replace(num_layers=RWKV_DEPTH, dtype="float32",
+                       param_dtype="float32")
+    gen = torch.Generator(dev)
+    gen.manual_seed(11)
+    params = model.init(cfg, gen, device=dev)
+    seq = RWKV_CONSISTENCY_SEQ
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (1, seq))).to(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    pre = build_prefill_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    pre_chunk = build_prefill_step(cfg, wkv_chunk=RWKV_CHUNK)(
+        params, {"tokens": toks})
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    chunk_launches = wkv.wkv6.launches - prefill_launches["wkv6"]
+    cache = model.init_cache(params, cfg, 1, seq)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(seq):
+            dec = model.decode_(params, cache, cfg, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    dec = dec[:, 0]
+    err = float((pre - dec).abs().max())
+    err_chunk = float((pre_chunk - dec).abs().max())
+    scale = float(dec.abs().max())
+    want = {wkv_key(1, seq, cfg): RWKV_DEPTH,
+            wkv_key(1, 1, cfg): RWKV_DEPTH * seq}
+    emit("rwkv_consistency", model=RWKV_ARCH, layers=RWKV_DEPTH,
+         cut=f"depth {full.num_layers} -> {RWKV_DEPTH}", dtype="float32",
+         params=flops.count_params_analytic(cfg),
+         param_bytes=tensor_bytes(params), seq=seq, wkv_chunk=RWKV_CHUNK,
+         prefill_ms=prefill_s * 1e3, chunked_prefill_ms=chunk_s * 1e3,
+         decode_ms_per_token=decode_s * 1e3 / seq, max_abs_err=err,
+         max_abs_err_chunked=err_chunk, max_abs_logit=scale,
+         tol=RWKV_TOL * scale, tol_chunked=RWKV_CHUNK_TOL * scale,
+         same_argmax=bool(torch.equal(pre.argmax(-1), dec.argmax(-1))),
+         same_argmax_chunked=bool(torch.equal(pre_chunk.argmax(-1),
+                                              dec.argmax(-1))),
+         prefill_launches=prefill_launches,
+         chunked_prefill_launches=chunk_launches, launches=launches,
+         wkv_shapes={str(k): v for k, v in tally["wkv6"].items()},
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    require(tally["wkv6"] == want and chunk_launches == 0,
+            f"rwkv_consistency: WKV launches {tally['wkv6']} (chunked "
+            f"prefill {chunk_launches}), want {want} and 0")
+    require(all(n == 0 for k, n in launches.items() if k != "wkv6"),
+            f"rwkv_consistency: another kernel was launched: {launches}")
+    require(bool(torch.isfinite(pre).all()) and scale > 0
+            and err <= RWKV_TOL * scale,
+            f"rwkv_consistency: prefill vs decode logits err {err} > "
+            f"{RWKV_TOL} x {scale}")
+    require(bool(torch.isfinite(pre_chunk).all())
+            and err_chunk <= RWKV_CHUNK_TOL * scale,
+            f"rwkv_consistency: chunked prefill vs decode logits err "
+            f"{err_chunk} > {RWKV_CHUNK_TOL} x {scale}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return tally
+
+
+def rwkv_train_phase(dev, counters, zero_counters, profile_dir=None):
+    """``build_opt_init`` and LM_TRAIN_WARMUP + LM_TIMED steps of
+    ``build_train_step`` on the same batch: full-width RWKV_ARCH at
+    RWKV_TRAIN_DEPTH layers, bf16 params over an fp32 master, fp32
+    moments, remat on, B = 1, S = LM_TRAIN_SEQ, lr LM_TRAIN_LR: finite,
+    falling losses, exactly two WKV launches a layer and step (the
+    forward and remat's recompute) and one backward, no other kernel,
+    every bf16 param its master's cast bitwise, the peak below the
+    card's memory, beside 16 B a param; with ``profile_dir``, one more
+    step under ``torch.profiler``.  Returns the steps' tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_opt_init, build_train_step
+    from repro_torch.metrics import flops
+    from repro_torch.models import model
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(RWKV_ARCH)
+    cfg = full.replace(num_layers=RWKV_TRAIN_DEPTH)
+    gen = torch.Generator(dev)
+    gen.manual_seed(12)
+    params = model.init(cfg, gen, device=dev)
+    opt = build_opt_init(cfg)(params)
+    n = sum(p.numel() for p in tree_leaves(params))
+    resident = tensor_bytes(params) + tensor_bytes(opt)
+    batch = lm_train_batch(cfg, dev, LM_TRAIN_SEQ, 13)
+    step = build_train_step(cfg, lr=LM_TRAIN_LR)
+    runs = LM_TRAIN_WARMUP + LM_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    times, losses = [], []
+    for i in range(runs):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    master_cast = all(torch.equal(p, m.to(p.dtype)) for p, m in
+                      zip(tree_leaves(params), tree_leaves(opt.master)))
+    med = float(np.median(times[LM_TRAIN_WARMUP:]))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    key = wkv_key(1, LM_TRAIN_SEQ, cfg)
+    emit("rwkv_train", model=cfg.name, layers=cfg.num_layers,
+         cut=f"depth {full.num_layers} -> {cfg.num_layers}", params=n,
+         params_analytic=flops.count_params_analytic(cfg),
+         dtype=cfg.dtype, param_dtype=cfg.param_dtype, master="float32",
+         moments="float32", remat=True, batch=1, seq=LM_TRAIN_SEQ,
+         lr=LM_TRAIN_LR, losses=losses, warmup_ms=times[0] * 1e3,
+         step_ms=[t * 1e3 for t in times[LM_TRAIN_WARMUP:]],
+         step_ms_p50=med * 1e3, tokens_per_s=LM_TRAIN_SEQ / med,
+         peak_mem_bytes=peak, card_mem_bytes=total, state_bytes=resident,
+         state_with_grads_estimate_bytes=LM_BYTES_PER_PARAM * n,
+         launches=launches,
+         wkv_backward_launches=sum(tally["wkv6_bwd"].values()),
+         params_are_master_cast=master_cast)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"rwkv_train: losses {losses} are not finite and falling")
+    require(tally["wkv6"] == {key: 2 * cfg.num_layers * runs}
+            and tally["wkv6_bwd"] == {key: cfg.num_layers * runs},
+            f"rwkv_train: WKV launches {tally['wkv6']}, backward "
+            f"{tally['wkv6_bwd']}, want {2 * cfg.num_layers} and "
+            f"{cfg.num_layers} a step at {key}")
+    require(all(n == 0 for k, n in launches.items() if k != "wkv6")
+            and not any(tally[k] for k in (
+                "rglru_scan_bwd", "group_l2_norms_bwd",
+                "block_masked_matmul_dx")),
+            f"rwkv_train: another kernel was launched: {launches}")
+    require(master_cast, "rwkv_train: a bf16 param is not its master's "
+                         "cast")
+    require(peak < total, f"rwkv_train: peak {peak} >= the card's {total}")
+    if profile_dir:
+        emit("profile", run="rwkv_train step, profiled", seq=LM_TRAIN_SEQ,
+             **profiled(lambda: step(params, opt, batch, runs),
+                        os.path.join(profile_dir,
+                                     "rwkv_train_profile.txt")))
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    return tally
+
+
+def rwkv_phases(dev, counters, zero_counters, profile_dir=None):
+    """Phases 7r-7u in order, each model freed before the next; returns
+    path -> tallies.  With ``profile_dir``, one more prefill and
+    LM_PROFILE_STEPS decode steps of RWKV_ARCH under ``torch.profiler``
+    after rwkv_serve (:func:`lm_profile_phase`), and one more rwkv_train
+    step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    tallies = {}
+    torch.cuda.empty_cache()
+    cfg = get_config(RWKV_ARCH)
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    emit("rwkv_init", model=cfg.name, seconds=time.perf_counter() - t0,
+         param_bytes=tensor_bytes(params),
+         allocated_bytes=torch.cuda.memory_allocated(dev),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    tallies["rwkv_prefill"] = rwkv_prefill_phase(cfg, params, dev,
+                                                 counters, zero_counters)
+    torch.cuda.empty_cache()
+    tallies["rwkv_serve"] = lm_serve_phase(
+        cfg, params, dev, counters, zero_counters, phase="rwkv_serve",
+        per_step={"wkv6": cfg.num_layers})
+    served = tallies["rwkv_serve"]["wkv6"]
+    require(list(served) == [wkv_key(LM_SERVE["slots"], 1, cfg)],
+            f"rwkv_serve: WKV launched at {list(served)}, want one token "
+            f"over the {LM_SERVE['slots']} slots")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        lm_profile_phase(cfg, params, dev, profile_dir, name="rwkv")
+    del params
+    torch.cuda.empty_cache()
+    tallies["rwkv_consistency"] = rwkv_consistency_phase(dev, counters,
+                                                         zero_counters)
+    tallies["rwkv_train"] = rwkv_train_phase(dev, counters, zero_counters,
+                                             profile_dir)
+    return tallies
+
+
+# ---------------------------------------------------------------------------
 # phase 7f: the obs layer and the pipelined rounds
 # ---------------------------------------------------------------------------
 
@@ -2705,7 +3174,7 @@ def check_vectorized(seq, vec):
             f"(limit {TRAIN_PARAMS_ATOL}), {bulk} within "
             f"{TRAIN_PARAMS_BULK[0]} (want {TRAIN_PARAMS_BULK[1]})")
     got = dict(launches, group_l2_norms_bwd=vec["gl2_bwd"])
-    want = dict(VECTORIZED_LAUNCHES, rglru_scan=0)
+    want = dict(VECTORIZED_LAUNCHES, rglru_scan=0, wkv6=0)
     require(got == want, f"train vectorized: launches {got}, want {want}")
     require(all(len(k) == 6 and k[5] == TRAIN_CLIENTS for k in mm_keys)
             and vec["omega"] == (2, 2),
@@ -3127,7 +3596,7 @@ def train_bf16_phase(cfg, dev, counters, zero_counters, fp32_run):
             "train_bf16: downloads not half the fp32 run's, or uploads "
             "not equal")
     got = dict(launches, group_l2_norms_bwd=run["gl2_bwd"])
-    require(got == dict(VECTORIZED_LAUNCHES, rglru_scan=0),
+    require(got == dict(VECTORIZED_LAUNCHES, rglru_scan=0, wkv6=0),
             f"train_bf16: launches {got}, want {VECTORIZED_LAUNCHES}")
     require(dtypes == {"block_masked_matmul": ["bfloat16"],
                        "flash_attention": ["bfloat16"]}
@@ -3233,7 +3702,7 @@ def want_launches(run, engine, hierarchical, sparse_rounds=2):
     return {"block_masked_matmul": steps * (fwd + dx),
             "flash_attention": steps * U_NET_ATTENTION,
             "group_l2_norms": sparse + prunes, "group_l2_norms_bwd": sparse,
-            "rglru_scan": 0}
+            "rglru_scan": 0, "wkv6": 0}
 
 
 def counted_comm(run, quant="none", flat_method=None):
@@ -4034,6 +4503,8 @@ PROFILE_CATEGORIES = (("block_masked_matmul", ("bmm_kernel",
                                           "group_l2_sums", "group_l2_bwd")),
                       ("rglru_scan", ("rglru_scan_tma", "rglru_scan_kernel")),
                       ("rglru_scan_bwd", ("rglru_scan_bwd",)),
+                      ("wkv6", ("wkv_fwd",)),
+                      ("wkv6_bwd", ("wkv_bwd",)),
                       ("library_gemm", ("gemm", "gemv", "nvjet")),
                       ("elementwise", ("elementwise",)),
                       ("reduce", ("reduce_kernel",)),
@@ -4336,6 +4807,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.group_l2_norms import ops as gl2
     from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.kernels.wkv6 import ops as wkv
     from repro_torch.models.unet import apply_unet, init_unet
     from repro_torch.serve import __main__ as serve_cli
     from repro_torch.serve.artifact import masks_for_ratio
@@ -4348,17 +4820,16 @@ def run(out_dir: str, profile: bool = False) -> dict:
     counters = {"block_masked_matmul": bmm.block_masked_matmul,
                 "flash_attention": fa.flash_attention_bhsd,
                 "group_l2_norms": gl2.group_l2_norms,
-                "rglru_scan": scan.rglru_scan}
+                "rglru_scan": scan.rglru_scan, "wkv6": wkv.wkv6}
 
     def zero_counters():
         for fn in counters.values():
             fn.launches = 0
             fn.shapes.clear()
         bmm.block_masked_matmul.dx_shapes.clear()
-        gl2.group_l2_norms.bwd_launches = 0
-        gl2.group_l2_norms.bwd_shapes.clear()
-        scan.rglru_scan.bwd_launches = 0
-        scan.rglru_scan.bwd_shapes.clear()
+        for fn in (gl2.group_l2_norms, scan.rglru_scan, wkv.wkv6):
+            fn.bwd_launches = 0
+            fn.bwd_shapes.clear()
 
     # -- 3. serving: the CLI, dense and at ratio 0.44 ------------------------
     tallies = {}                  # path -> kernel -> {shape key: launches}
@@ -4447,6 +4918,11 @@ def run(out_dir: str, profile: bool = False) -> dict:
     tallies.update(dense_phases(dev, counters, zero_counters,
                                 profile_dir=out_dir if profile else None))
 
+    # -- 7r-7u. RWKV-6: rwkv6-7b at full depth, prefill and serving; its
+    # prefill against decode at depth 4 on both routes; its train step --
+    tallies.update(rwkv_phases(dev, counters, zero_counters,
+                               profile_dir=out_dir if profile else None))
+
     # -- 4b. the experiment API: the paper preset, run and resumed ---------
     tallies["experiment"] = experiment_phase(dev, counters, zero_counters)
 
@@ -4482,6 +4958,10 @@ def run(out_dir: str, profile: bool = False) -> dict:
                 and row.get("role") == "bwd":
             row["launches"] = {"lm_train_bwd": tallies["lm_train"][
                 "rglru_scan_bwd"].get(row["key"], 0)}
+        elif row.get("key") is not None and row["kernel"] == "wkv6" \
+                and row.get("role") == "bwd":
+            row["launches"] = {"rwkv_train_bwd": tallies["rwkv_train"][
+                "wkv6_bwd"].get(row["key"], 0)}
         elif row.get("key") is not None:
             row["launches"] = {p: tallies[p][row["kernel"]].get(row["key"], 0)
                                for p in PATHS}
@@ -4605,6 +5085,27 @@ def run(out_dir: str, profile: bool = False) -> dict:
         emit("kernels", kernel="rglru_scan_backward",
              launched_shapes=len(bwd_keys), cases=len(bwd_cases),
              bitwise_equal=True)
+
+        wkv_keys = launched("wkv6")
+        wkv_cases = [((B, S, H, K), "init", key)
+                     for key in wkv_keys for B, S, H, K, _ in (key,)]
+        wkv_cases += [((3, 1000, 5, 32), "fast", None),
+                      ((2, 1000, 3, 64), "underflow", None)]
+        wkv_err, wkv_rel = check_wkv(wkv_cases, gen, dev, log)
+        emit("kernels", kernel="wkv6", launched_shapes=len(wkv_keys),
+             cases=len(wkv_cases), max_abs_err=wkv_err, max_rel_err=wkv_rel,
+             tol_rel=WKV_TOL)
+        wkv_bwd_keys = launched("wkv6_bwd", ("rwkv_train",))
+        wkv_bwd_cases = [((B, S, H, K), "init", key)
+                         for key in wkv_bwd_keys for B, S, H, K, _ in (key,)]
+        wkv_bwd_cases += [((3, 1000, 5, 32), "fast", None),
+                          ((2, 1000, 3, 64), "underflow", None)]
+        wkv_bwd_err, wkv_bwd_rel = check_wkv_backward(wkv_bwd_cases, gen,
+                                                      dev, log)
+        emit("kernels", kernel="wkv6_backward",
+             launched_shapes=len(wkv_bwd_keys), cases=len(wkv_bwd_cases),
+             max_abs_err=wkv_bwd_err, max_rel_err=wkv_bwd_rel,
+             tol_rel=WKV_TOL)
     finally:
         case_log.close()
 
@@ -4659,7 +5160,7 @@ def run(out_dir: str, profile: bool = False) -> dict:
     errs = {"block_masked_matmul": mm_err["float32"],
             "flash_attention": att_err["float32"],
             "group_l2_norms": l2_err,
-            "rglru_scan": scan_err["float32"]}
+            "rglru_scan": scan_err["float32"], "wkv6": wkv_err}
     for name, err in errs.items():
         paths = {p: path_totals(rows, tallies[p][name]) for p in PATHS
                  if not (p in BACKWARD_PATHS
@@ -4692,6 +5193,17 @@ def run(out_dir: str, profile: bool = False) -> dict:
                         "vs_library": main["vs_library"],
                         "main_path": MAIN_PATHS[name], "paths": paths,
                         **extra})
+    # the WKV backward: its own kernels (source and entry), on rwkv_train
+    bwd = path_totals(rows, tallies["rwkv_train"]["wkv6_bwd"], role="bwd")
+    kernels.append({"name": "wkv6_backward", "route": "cuda",
+                    "source": SOURCES["wkv6"],
+                    "replaces": TPU_KERNELS["wkv6"],
+                    "launches": bwd["launches"], "max_abs_err": wkv_bwd_err,
+                    **{k: bwd[k] for k in TIMES},
+                    "bound_by": bwd["bound_by"],
+                    "bound_share": bwd["bound_share"],
+                    "vs_library": bwd["vs_library"],
+                    "main_path": "rwkv_train", "paths": {"rwkv_train": bwd}})
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "JAX or the JAX package was imported")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,5 @@
 """Config registry: the paper's DDPM U-Nets, the reference's
-architectures less ``rwkv6-7b`` (its layer kind is not ported), their
-reduced smoke variants, the assigned input shapes with the per-shape
+architectures, their reduced smoke variants, the assigned input shapes with the per-shape
 adaptation, and the federated-learning config."""
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ from repro_torch.configs.internvl2_76b import CONFIG as _internvl2_76b
 from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as _moonshot
 from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as _qwen3_moe
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma_9b
+from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv6_7b
 from repro_torch.configs.whisper_base import CONFIG as _whisper_base
 
 UNETS: Dict[str, ModelConfig] = {
@@ -29,10 +29,9 @@ UNETS: Dict[str, ModelConfig] = {
     "ddpm-unet-smoke": SMOKE_UNET,
 }
 
-# the reference's ARCHS less rwkv6-7b, whose layer kind waits (ROADMAP
-# A.13)
 ARCHS: Dict[str, ModelConfig] = {
     "recurrentgemma-9b": _recurrentgemma_9b,
+    "rwkv6-7b": _rwkv6_7b,
     "whisper-base": _whisper_base,
     "internlm2-20b": _internlm2_20b,
     "gemma2-2b": _gemma2_2b,

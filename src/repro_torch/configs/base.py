@@ -4,8 +4,7 @@
 :class:`ModelConfig` keeps every field of the reference, so a ``cfg``
 dict written into a checkpoint manifest by either package round-trips
 through :func:`config_from_dict` unchanged.  The U-Net reads the U-Net
-fields and the transformer stack the rest; the RWKV layer kind is
-carried but not ported.
+fields and the transformer stack the rest.
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ from typing import Optional, Tuple
 ATTN_GLOBAL = 0      # full causal attention
 ATTN_LOCAL = 1       # sliding-window causal attention
 RECURRENT = 2        # RG-LRU recurrent block (RecurrentGemma)
-RWKV = 3             # RWKV6 time-mix block (not ported)
+RWKV = 3             # RWKV6 time-mix and channel-mix block
 
 
 @dataclass(frozen=True)

@@ -54,6 +54,11 @@ SIGNATURES = {
     "rglru_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # g, a, h, da, db, B, S, W, bf16, kernel, stream
     "rglru_scan_bwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # r, k, v, w, u, state, out, new_state, B, S, H, K, stream
+    "wkv6_fwd_launch": [_P] * 8 + [_I] * 4 + [_P],
+    # r, k, v, w, u, state, dout, dstate, dr, dk, dv, dw, du_rows, ds0,
+    # ckpt, B, S, H, K, chunk, stream
+    "wkv6_bwd_launch": [_P] * 15 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

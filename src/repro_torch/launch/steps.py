@@ -21,13 +21,15 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def build_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
-                     remat: bool = True):
+                     remat: bool = True, wkv_chunk: int = 0):
     """train_step(params, opt_state, batch, seed=0) -> (params, opt_state,
     loss).
 
     The loss and its gradient come from ``torch.autograd`` through
     ``model.loss_fn`` (``remat``: each pattern cycle and cross-entropy
-    chunk recomputed in the backward, the reference's default); then
+    chunk recomputed in the backward, the reference's default;
+    ``wkv_chunk``, the reference's ``ApplyOptions.wkv_chunk``: RWKV's
+    chunk-parallel form, 0 the exact recurrence); then
     :func:`adam_update_` updates ``params`` and ``opt_state`` in place,
     and the same objects are returned: the step consumes its inputs.
     The loss stays on the device (0-d fp32).  ``seed`` is the
@@ -40,7 +42,8 @@ def build_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss = model.loss_fn(params, cfg, batch, remat=remat)
+            loss = model.loss_fn(params, cfg, batch, remat=remat,
+                                 wkv_chunk=wkv_chunk)
             # a leaf the loss does not read (a parallel block's ln2)
             # gets a zero gradient, as the reference's grad gives it
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -64,11 +67,12 @@ def build_opt_init(cfg: ModelConfig):
     return opt_init
 
 
-def build_prefill_step(cfg: ModelConfig):
-    """prefill_step(params, batch) -> last-token logits (B, V)."""
+def build_prefill_step(cfg: ModelConfig, *, wkv_chunk: int = 0):
+    """prefill_step(params, batch) -> last-token logits (B, V)
+    (``wkv_chunk``: as in :func:`build_train_step`)."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, cfg, batch)
+        return model.prefill(params, cfg, batch, wkv_chunk=wkv_chunk)
     return prefill_step
 
 

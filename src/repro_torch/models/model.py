@@ -32,7 +32,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             clients: Optional[int] = None,
             t: Optional[torch.Tensor] = None,
             eps: Optional[torch.Tensor] = None,
-            remat: bool = True) -> torch.Tensor:
+            remat: bool = True, wkv_chunk: int = 0) -> torch.Tensor:
     """A U-Net's DDPM epsilon loss of one batch (``batch["images"]``),
     with t and eps drawn from ``generator`` unless given.  Training runs
     the U-Net without dropout, as the reference's loss does
@@ -45,10 +45,12 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     forward over ``batch`` (``tokens``; a VLM's ``image_embeds``, an
     encdec model's ``frames``) against ``batch["labels"]`` (-1 ignored),
     with ``remat`` (the reference's default ``ApplyOptions.remat=True``),
-    plus the MoE layers' load-balance aux loss (0 without MoE layers).
-    RWKV layers are not ported yet (ROADMAP A.13) and raise."""
+    plus the MoE layers' load-balance aux loss (0 without MoE layers);
+    ``wkv_chunk`` is the reference's ``ApplyOptions.wkv_chunk`` (RWKV's
+    chunk-parallel form; 0, the exact recurrence)."""
     if cfg.arch_type != "unet":
-        hidden, aux = tfm.forward(params, cfg, batch, remat=remat)
+        hidden, aux = tfm.forward(params, cfg, batch, remat=remat,
+                                  wkv_chunk=wkv_chunk)
         return tfm.chunked_xent(params, cfg, hidden, batch["labels"],
                                 remat=remat) + aux
     x0 = batch["images"]
@@ -60,9 +62,10 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def prefill(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor], *,
+            wkv_chunk: int = 0) -> torch.Tensor:
     """Full-sequence forward; the last position's logits (B, V)."""
-    hidden, _ = tfm.forward(params, cfg, batch)
+    hidden, _ = tfm.forward(params, cfg, batch, wkv_chunk=wkv_chunk)
     return tfm.logits_from_hidden(params, cfg, hidden[:, -1:, :])[:, 0, :]
 
 
@@ -123,7 +126,6 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, InputSpec]:
         return {"images": InputSpec((B, cfg.image_size, cfg.image_size,
                                      cfg.in_channels), torch.float32),
                 "labels": InputSpec((B,), i32)}
-    tfm.stack_plan(cfg)              # raises for what is not ported
     if shape.mode == "decode":
         return {"tokens": InputSpec((B, 1), i32)}
     act = dtype_of(cfg.dtype)

@@ -2,14 +2,14 @@
 local attention layers (GQA/MQA, gemma2's attention soft-capping),
 DeepSeek's multi-head latent attention (MLA) and RG-LRU recurrent
 layers, each with a dense FFN or a mixture of experts (MoE), or with
-command-r's parallel attention and FFN block; whisper's bidirectional
-encoder and the decoder's cross-attention over its output (encdec), and
-the VLM's image embeddings before the token embeddings; the
-full-sequence forward (prefill, and training with ``remat``), the
-chunked cross-entropy, and single-token decode with per-kind caches
-(ring-buffer KV for windowed attention, full KV for global attention,
-the latent cache for MLA, O(1) state for RG-LRU, the encoder output for
-encdec).
+command-r's parallel attention and FFN block; RWKV-6 layers (time-mix
+and channel-mix); whisper's bidirectional encoder and the decoder's
+cross-attention over its output (encdec), and the VLM's image
+embeddings before the token embeddings; the full-sequence forward
+(prefill, and training with ``remat``), the chunked cross-entropy, and
+single-token decode with per-kind caches (ring-buffer KV for windowed
+attention, full KV for global attention, the latent cache for MLA, O(1)
+states for RG-LRU and RWKV, the encoder output for encdec).
 
 Parameters are the reference's tree: ``head`` (unstacked leading
 layers: an MoE model's dense-FFN layers), ``cycles`` (one tree per
@@ -19,11 +19,12 @@ so :mod:`repro_torch.convert` carries weights across unchanged.  The
 reference scans the cycles with ``lax.scan``; here a Python loop walks
 the stacked leaves' first axis.
 
-On a CUDA tensor the forward's recurrences launch the scan kernel (and
-their gradients its backward kernel), and its causal GQA/MHA
-self-attention without soft-capping the attention kernel
-(``models/ops.py:attention``, as the reference's Pallas route, with the
-reference's dense recompute backward).  Everything else attends in plain
+On a CUDA tensor the forward's RG-LRU recurrences launch the scan
+kernel and its RWKV layers the WKV kernel (and their gradients the
+backward kernels; the decode step's WKV is the same kernel at one
+token), and its causal GQA/MHA self-attention without soft-capping the
+attention kernel (``models/ops.py:attention``, as the reference's
+Pallas route, with the reference's dense recompute backward).  Everything else attends in plain
 ops (``attention.attend``, in q blocks of ATTN_CHUNK), as the
 reference's route does: soft-capped layers (all of gemma2's), the
 encoder's bidirectional layers, every cross-attention, and MLA
@@ -34,8 +35,9 @@ is.  ``remat`` is the reference's ``ApplyOptions.remat``: each pattern
 cycle, each encoder block and each cross-entropy chunk runs under
 ``torch.utils.checkpoint``, so the backward recomputes it (its kernels
 launch again) instead of holding its activations; the head layers are
-not recomputed, as in the reference.  RWKV layers raise
-``NotImplementedError`` (ROADMAP A.13).
+not recomputed, as in the reference.  ``wkv_chunk`` is the reference's
+``ApplyOptions.wkv_chunk``: RWKV's chunk-parallel form (0, the default,
+is the exact recurrence).
 """
 from __future__ import annotations
 
@@ -46,13 +48,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
-                                      ModelConfig)
+                                      RWKV, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ops
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        embed_init, rms_norm, softcap)
 from repro_torch.models.ffn import apply_ffn, init_ffn
@@ -63,14 +66,6 @@ INT_MAX = torch.iinfo(torch.int32).max
 _ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
 # the reference's ApplyOptions.attn_chunk: the plain route's q-block size
 ATTN_CHUNK = 1024
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    bad = set(cfg.layer_pattern) - {ATTN_GLOBAL, ATTN_LOCAL, RECURRENT}
-    if bad:
-        raise NotImplementedError(f"{cfg.name!r}: layer kinds {sorted(bad)} "
-                                  f"(RWKV) are not ported yet (ROADMAP "
-                                  f"A.13)")
 
 
 # ===========================================================================
@@ -85,7 +80,6 @@ class StackPlan:
 
 
 def stack_plan(cfg: ModelConfig) -> StackPlan:
-    _require_ported(cfg)
     n_head = cfg.moe.first_dense_layers if cfg.moe else 0
     if n_head and len(cfg.layer_pattern) != 1:
         raise ValueError("head layers need a uniform layer pattern")
@@ -152,9 +146,17 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: int, *,
                device="cpu") -> Params:
     """One layer's params; ``cross_attn`` adds an attention layer's
     ``ln_cross`` and ``cross`` (an encdec decoder layer).  A parallel
-    block keeps ``ln2``, unused, as the reference's tree does."""
+    block keeps ``ln2``, unused, as the reference's tree does.  An RWKV
+    layer is ``ln1``, ``tmix``, ``ln2`` and ``cmix``."""
     d = cfg.d_model
     p: Params = {"ln1": torch.zeros((d,), dtype=dtype, device=device)}
+    if kind == RWKV:
+        p["tmix"] = rwkv_lib.init_rwkv_tmix(generator, d, cfg.num_heads,
+                                            cfg.head_dim, dtype, device)
+        p["ln2"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["cmix"] = rwkv_lib.init_rwkv_cmix(generator, d, cfg.d_ff, dtype,
+                                            device)
+        return p
     if kind in _ATTN and cfg.mla is not None:
         p["mla"] = mla_lib.init_mla(generator, d, cfg.num_heads, cfg.mla,
                                     dtype, device)
@@ -164,8 +166,7 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: int, *,
         p["rec"] = rglru_lib.init_rglru(generator, d, cfg.lru_width,
                                         cfg.conv1d_width, dtype, device)
     else:
-        raise NotImplementedError(f"layer kind {kind} is not ported yet "
-                                  f"(ROADMAP A.13)")
+        raise ValueError(f"unknown layer kind {kind}")
     if cross_attn and kind in _ATTN:
         p["ln_cross"] = torch.zeros((d,), dtype=dtype, device=device)
         p["cross"] = init_attn_params(generator, cfg, dtype, device)
@@ -310,20 +311,29 @@ def _ffn_only(lp, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def apply_layer_full(lp: Params, x: torch.Tensor, kind: int,
                      cfg: ModelConfig, positions: torch.Tensor, *,
                      enc_out: Optional[torch.Tensor] = None,
-                     causal: bool = True):
+                     causal: bool = True, wkv_chunk: int = 0):
     """One layer over a full sequence.  Returns (x, aux loss).  An
     attention layer with ``cfg.parallel_block`` adds attention and FFN
     of one normed input, ``x + attn(h) + ffn(h)``; one with ``cross``
     attends to ``enc_out`` between its self-attention and its FFN.
-    ``causal=False``: the encoder's bidirectional layers."""
+    ``causal=False``: the encoder's bidirectional layers.  An RWKV layer
+    is time-mix then channel-mix, each on its normed input, its state
+    discarded (``wkv_chunk``: see :func:`rwkv6.apply_tmix`)."""
     lp = _cast_layer(lp, x.dtype)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+    if kind == RWKV:
+        tm_out, _ = rwkv_lib.apply_tmix(lp["tmix"], h, cfg.num_heads,
+                                        cfg.head_dim, wkv_chunk=wkv_chunk)
+        x = x + tm_out
+        cm_out, _ = rwkv_lib.apply_cmix(lp["cmix"],
+                                        rms_norm(x, lp["ln2"], cfg.norm_eps))
+        return x + cm_out, _zero(x)
     if kind == RECURRENT:
         x = x + rglru_lib.apply_rglru(lp["rec"], h,
                                       conv_width=cfg.conv1d_width)
     elif kind not in _ATTN:
-        raise NotImplementedError(f"layer kind {kind} (ROADMAP A.13)")
+        raise ValueError(f"unknown layer kind {kind}")
     else:
         if "mla" in lp:
             attn_out = mla_lib.apply_mla(lp["mla"], h, cfg.mla,
@@ -380,16 +390,18 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
 
 def _apply_cycle(cycle_params, x: torch.Tensor, aux: torch.Tensor,
                  cfg: ModelConfig, positions: torch.Tensor,
-                 enc_out: Optional[torch.Tensor]):
+                 enc_out: Optional[torch.Tensor], wkv_chunk: int = 0):
     """One repetition of the layer pattern: (x, aux) -> (x, aux)."""
     for lp, kind in zip(cycle_params, cfg.layer_pattern):
-        x, a = apply_layer_full(lp, x, kind, cfg, positions, enc_out=enc_out)
+        x, a = apply_layer_full(lp, x, kind, cfg, positions, enc_out=enc_out,
+                                wkv_chunk=wkv_chunk)
         aux = aux + a
     return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor], *, remat: bool = False):
+            batch: Dict[str, torch.Tensor], *, remat: bool = False,
+            wkv_chunk: int = 0):
     """Full-sequence forward -> (final-normed hidden (B, S, d), aux loss:
     the MoE layers' summed load-balance terms, fp32 0-d).
 
@@ -399,7 +411,8 @@ def forward(params: Params, cfg: ModelConfig,
     run through :func:`apply_encoder`, whose output every decoder layer
     attends to.  ``remat``: each pattern cycle and each encoder block is
     recomputed in the backward (the reference's ``jax.checkpoint`` of
-    its scan bodies)."""
+    its scan bodies).  ``wkv_chunk``: the RWKV layers' chunk-parallel
+    form (0: the exact recurrence)."""
     plan = stack_plan(cfg)
     x = embed_tokens(params, cfg, batch["tokens"])
     enc_out = None
@@ -412,18 +425,20 @@ def forward(params: Params, cfg: ModelConfig,
     aux = _zero(x)
     for lp in params["head"]:
         x, a = apply_layer_full(lp, x, cfg.layer_pattern[0], cfg, positions,
-                                enc_out=enc_out)
+                                enc_out=enc_out, wkv_chunk=wkv_chunk)
         aux = aux + a
     for c in range(plan.n_cycles):
         cyc = [_cycle(params["cycles"][pos], c)
                for pos in range(len(plan.pattern))]
         if remat:
             x, aux = checkpoint(_apply_cycle, cyc, x, aux, cfg, positions,
-                                enc_out, use_reentrant=False)
+                                enc_out, wkv_chunk, use_reentrant=False)
         else:
-            x, aux = _apply_cycle(cyc, x, aux, cfg, positions, enc_out)
+            x, aux = _apply_cycle(cyc, x, aux, cfg, positions, enc_out,
+                                  wkv_chunk)
     for lp, kind in zip(params["tail"], plan.tail_kinds):
-        x, a = apply_layer_full(lp, x, kind, cfg, positions, enc_out=enc_out)
+        x, a = apply_layer_full(lp, x, kind, cfg, positions, enc_out=enc_out,
+                                wkv_chunk=wkv_chunk)
         aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -509,7 +524,10 @@ def _layer_state(cfg: ModelConfig, kind: int, batch: int, seq_len: int,
     if kind == RECURRENT:
         return rglru_lib.init_rglru_state(batch, cfg.lru_width,
                                           cfg.conv1d_width, dtype, device)
-    raise NotImplementedError(f"layer kind {kind} (ROADMAP A.13)")
+    if kind == RWKV:
+        return rwkv_lib.init_rwkv_state(batch, cfg.d_model, cfg.num_heads,
+                                        cfg.head_dim, dtype, device)
+    raise ValueError(f"unknown layer kind {kind}")
 
 
 def init_cache(params: Params, cfg: ModelConfig, batch: int,
@@ -612,10 +630,21 @@ def apply_layer_decode_(lp: Params, state: Params, x: torch.Tensor,
     """One layer, one token.  x (B, 1, d).  Writes the layer's new state
     into ``state`` in place and returns x.  The cross-attention over
     ``enc_out`` leaves out the q/k/v biases, as the reference's decode
-    step does."""
+    step does.  An RWKV layer's WKV state ``S`` is written by the
+    kernel's one-token launch, its ``shift_t`` and ``shift_c`` by
+    copies."""
     lp = _cast_layer(lp, x.dtype)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+    if kind == RWKV:
+        tm_out, _ = rwkv_lib.apply_tmix(
+            lp["tmix"], h, cfg.num_heads, cfg.head_dim,
+            state={"S": state["S"], "shift": state["shift_t"]}, inplace=True)
+        x = x + tm_out
+        cm_out, _ = rwkv_lib.apply_cmix(
+            lp["cmix"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+            state={"shift": state["shift_c"]}, inplace=True)
+        return x + cm_out
     if "mla" in lp:
         out, _, _ = mla_lib.mla_decode(lp["mla"], h, state["c"], state["kr"],
                                        pos, cfg.mla, cfg.num_heads,
@@ -629,7 +658,7 @@ def apply_layer_decode_(lp: Params, state: Params, x: torch.Tensor,
         for key, t in new.items():
             state[key].copy_(t)
     else:
-        raise NotImplementedError(f"layer kind {kind} (ROADMAP A.13)")
+        raise ValueError(f"unknown layer kind {kind}")
     if kind in _ATTN and cfg.parallel_block:
         return x + out + _ffn_only(lp, h, cfg)
     x = x + out

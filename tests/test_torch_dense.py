@@ -223,10 +223,15 @@ def test_configs_and_smoke_variants_match_jax(arch):
     jplan = jax_tfm.stack_plan(jax_smoke_variant(arch))
     assert (plan.n_head, plan.n_cycles, plan.pattern, plan.tail_kinds) == (
         jplan.n_head, jplan.n_cycles, jplan.pattern, jplan.tail_kinds)
-    # every reference architecture but RWKV's, and only RWKV refused
-    assert list_archs() == [a for a in jax_list_archs() if a != "rwkv6-7b"]
-    with pytest.raises(NotImplementedError, match="RWKV"):
-        tfm.stack_plan(get_config(arch).replace(layer_pattern=(RWKV,)))
+    # every reference architecture, and every layer kind planned as the
+    # reference plans it
+    assert list_archs() == jax_list_archs()
+    rwkv = get_config(arch).replace(layer_pattern=(RWKV,))
+    plan = tfm.stack_plan(rwkv)
+    jplan = jax_tfm.stack_plan(jax_get_config(arch).replace(
+        layer_pattern=(RWKV,)))
+    assert (plan.n_head, plan.n_cycles, plan.pattern, plan.tail_kinds) == (
+        jplan.n_head, jplan.n_cycles, jplan.pattern, jplan.tail_kinds)
 
 
 def test_shapes_and_adapt_for_shape_match_jax():

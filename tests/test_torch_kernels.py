@@ -185,13 +185,15 @@ def test_group_l2_norms_rejects_uneven_groups():
 def test_build_sources_and_library_key(tmp_path):
     names = sorted(p.name for p in build.sources())
     assert names == ["block_masked_matmul.cu", "flash_attention.cu",
-                     "group_l2_norms.cu", "rglru_scan.cu"]
+                     "group_l2_norms.cu", "rglru_scan.cu", "wkv6.cu"]
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path == build.library_path()
     assert set(build.SIGNATURES) >= {"bmm_launch", "flash_attn_launch",
                                      "group_l2_fwd_launch",
                                      "group_l2_bwd_launch",
-                                     "rglru_scan_launch"}
+                                     "rglru_scan_launch",
+                                     "rglru_scan_bwd_launch",
+                                     "wkv6_fwd_launch", "wkv6_bwd_launch"}
     # the key covers every file under each csrc/ (an edited header
     # rebuilds) and the flags (an added include path or link library)
     csrc = tmp_path / "kern" / "csrc"

@@ -576,9 +576,8 @@ def test_input_specs_match_jax():
         for k, v in model.input_specs(CFG, small).items()}
     assert 0 <= int(x["tokens"].min()) and int(x["tokens"].max()) \
         < CFG.vocab_size
-    # the reference's architectures less rwkv6-7b, whose layer kind is
-    # the one the port does not have yet
-    assert list_archs() == [a for a in jax_list_archs() if a != "rwkv6-7b"]
+    # every one of the reference's architectures
+    assert list_archs() == jax_list_archs()
 
 
 def test_train_cli_trains_and_saves_a_reference_checkpoint(tmp_path):

@@ -325,8 +325,10 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
     assert len(imported) > 20
-    # LM training's modules among them
+    # LM training's and RWKV-6's modules among them
     assert {"repro_torch.launch.train", "repro_torch.launch.steps",
             "repro_torch.optim.sgd", "repro_torch.optim.schedules",
             "repro_torch.models.transformer",
-            "repro_torch.kernels.rglru_scan.ops"} <= imported
+            "repro_torch.kernels.rglru_scan.ops",
+            "repro_torch.models.rwkv6",
+            "repro_torch.kernels.wkv6.ops"} <= imported

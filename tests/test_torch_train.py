@@ -135,18 +135,19 @@ def _flat(tree, prefix=""):
     return {prefix: np.asarray(tree, np.float32)}
 
 
-# The reference's jitted local steps compile with LLVM's expensive passes
-# off: at XLA's backend level 1 a SMOKE sparse step compiles in ~8.5 s
-# instead of ~12 and runs no slower (0.19 s a step against 0.27), which
-# suits the FedPhD runs' steps; at level 0 in ~7.5 s but runs 2x slower,
-# which suits a step run once.
-FAST_COMPILE = {"xla_backend_optimization_level": 1,
-                "xla_llvm_disable_expensive_passes": True}
+# The reference's jitted local steps compile at XLA's backend level 0
+# with LLVM's expensive passes off.  A SMOKE sparse step then compiles in
+# about 11 CPU-s (about 5 s on the clock: the compile is multi-threaded)
+# against about 18.5 CPU-s at level 1, and runs in about 0.5 CPU-s a step
+# against 0.32: the FedPhD run's three step programs and 24 steps cost
+# about 46 CPU-s at level 0 against about 63 at level 1, and the test
+# suite runs in several processes at once, so CPU seconds are what it
+# pays.
 O0 = {"xla_backend_optimization_level": 0,
       "xla_llvm_disable_expensive_passes": True}
 
 
-def _fast_reference_jit(mp, options=FAST_COMPILE):
+def _fast_reference_jit(mp, options=O0):
     """Every ``jax.jit`` made while ``mp`` is active compiles with
     ``options`` (the reference builds its steps with ``@jax.jit``), and
     the reference's aggregations run as one program per tree instead of
@@ -445,7 +446,7 @@ def test_local_step_with_omega_matches_jax(np_params, runs, monkeypatch,
     monkeypatch.setattr(tmodel, "loss_fn", _port_injected_loss)
     jcfg, tcfg = JCFG.replace(precision=precision), \
         CFG.replace(precision=precision)
-    _fast_reference_jit(monkeypatch, O0)
+    _fast_reference_jit(monkeypatch)
     jp = _jtree(np_params)
     tp = params_from_jax(np_params, CPU)
     # the reference trainer's own fp32 sparse step: the same cfg, lambda0

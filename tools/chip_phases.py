@@ -4,7 +4,8 @@
   python3 tools/chip_phases.py [memory] [baselines] [centralized] [bf16]
                                [faults] [quant] [quantmem] [obs] [sweep]
                                [lmtrain] [lmprofile] [lmgrad] [moe]
-                               [moeprofile] [dense] [denseprofile] [check]
+                               [moeprofile] [dense] [denseprofile] [rwkv]
+                               [rwkvprofile] [check]
 
 Builds the kernels, then runs the named phases of ``chip_smoke.py`` in
 the order given (default: all): ``memory`` is
@@ -28,11 +29,17 @@ more moonshot prefill and 8 decode steps under ``torch.profiler``
 five dense-extras configs' prefill against decode, gemma2-2b's
 full-depth train step), ``denseprofile`` the same with one more
 command-r prefill, 8 decode steps and one more gemma2 train step under
-``torch.profiler`` (tables in ``build/chip_phases/dense_*_profile.txt``), and
-``check`` (last) holds every matmul, attention (in its dtype and the
-other), group-L2 and scan (forward and backward) shape the phases
-before it launched against the plain versions (``check_matmul``, ``check_attention``,
-``check_group_l2``, ``check_scan``, ``check_scan_backward``).  A failed check is printed and
+``torch.profiler`` (tables in ``build/chip_phases/dense_*_profile.txt``),
+``rwkv`` is ``rwkv_phases`` (rwkv6-7b's full-depth prefill and serving,
+its prefill against decode at depth 4 on the exact and the chunked
+route, its train step at 8 layers), ``rwkvprofile`` the same with one
+more prefill, 8 decode steps and one more train step under
+``torch.profiler`` (tables in ``build/chip_phases/rwkv_*_profile.txt``),
+and ``check`` (last) holds every matmul, attention (in its dtype and the
+other), group-L2, scan and WKV (forward and backward) shape the phases
+before it launched against the plain versions (``check_matmul``,
+``check_attention``, ``check_group_l2``, ``check_scan``,
+``check_scan_backward``, ``check_wkv``, ``check_wkv_backward``).  A failed check is printed and
 the run goes on to
 the next phase, where ``chip_smoke.py`` stops; the last line lists the
 failures, and the exit code is 1 if there was one.  Needs one CUDA card
@@ -52,7 +59,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("memory", "baselines", "centralized", "bf16", "faults", "quant",
           "quantmem", "obs", "sweep", "lmtrain", "lmprofile", "lmgrad",
-          "moe", "moeprofile", "dense", "denseprofile", "check")
+          "moe", "moeprofile", "dense", "denseprofile", "rwkv",
+          "rwkvprofile", "check")
 
 
 def main(argv) -> int:
@@ -63,6 +71,7 @@ def main(argv) -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.group_l2_norms import ops as gl2
     from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.kernels.wkv6 import ops as wkv
 
     which = argv or list(PHASES)
     unknown = set(which) - set(PHASES)
@@ -79,17 +88,16 @@ def main(argv) -> int:
     counters = {"block_masked_matmul": bmm.block_masked_matmul,
                 "flash_attention": fa.flash_attention_bhsd,
                 "group_l2_norms": gl2.group_l2_norms,
-                "rglru_scan": scan.rglru_scan}
+                "rglru_scan": scan.rglru_scan, "wkv6": wkv.wkv6}
 
     def zero():
         for fn in counters.values():
             fn.launches = 0
             fn.shapes.clear()
         bmm.block_masked_matmul.dx_shapes.clear()
-        gl2.group_l2_norms.bwd_launches = 0
-        gl2.group_l2_norms.bwd_shapes.clear()
-        scan.rglru_scan.bwd_launches = 0
-        scan.rglru_scan.bwd_shapes.clear()
+        for fn in (gl2.group_l2_norms, scan.rglru_scan, wkv.wkv6):
+            fn.bwd_launches = 0
+            fn.bwd_shapes.clear()
 
     fails = []
 
@@ -136,9 +144,11 @@ def main(argv) -> int:
                     profile=phase == "lmprofile"))
             elif phase == "lmgrad":
                 cs.lm_grad_phase(dev, counters)
-            elif phase in ("moe", "moeprofile", "dense", "denseprofile"):
-                phases = cs.moe_phases if phase.startswith("moe") \
-                    else cs.dense_phases
+            elif phase in ("moe", "moeprofile", "dense", "denseprofile",
+                           "rwkv", "rwkvprofile"):
+                phases = {"moe": cs.moe_phases, "dense": cs.dense_phases,
+                          "rwkv": cs.rwkv_phases}[
+                    phase.removesuffix("profile")]
                 for t in phases(
                         dev, counters, zero,
                         profile_dir=os.path.join(ROOT, "build", "chip_phases")
@@ -177,6 +187,19 @@ def main(argv) -> int:
                                 ((1, cs.LM_TRAIN_SEQ, 512), (0.999, 1.0),
                                  dt, None)]
                 cs.check_scan_backward(bwd, gen, dev, rows.append)
+                wkv_cases = [((B, S, H, K), "init", k) for k in
+                             tally.get("wkv6", {}) for B, S, H, K, _ in (k,)]
+                wkv_bwd = [((B, S, H, K), "init", k) for k in
+                           tally.get("wkv6_bwd", {})
+                           for B, S, H, K, _ in (k,)]
+                if wkv_cases:
+                    extra = [((3, 1000, 5, 32), "fast", None),
+                             ((2, 1000, 3, 64), "underflow", None)]
+                    wkv_cases += extra
+                    wkv_bwd += extra
+                wkv_err = cs.check_wkv(wkv_cases, gen, dev, rows.append)
+                wkv_bwd_err = cs.check_wkv_backward(wkv_bwd, gen, dev,
+                                                    rows.append)
                 print(json.dumps({"matmul_cases": len(cases),
                                   "matmul_err": mm_err,
                                   "attention_cases": len(att),
@@ -184,7 +207,11 @@ def main(argv) -> int:
                                   "group_l2_err": l2_err,
                                   "scan_cases": len(scan_cases),
                                   "scan_err": scan_err,
-                                  "scan_backward_cases": len(bwd)}),
+                                  "scan_backward_cases": len(bwd),
+                                  "wkv_cases": len(wkv_cases),
+                                  "wkv_err": wkv_err,
+                                  "wkv_backward_cases": len(wkv_bwd),
+                                  "wkv_backward_err": wkv_bwd_err}),
                       flush=True)
                 os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
                 with open(os.path.join(ROOT, "chiprun_out",
