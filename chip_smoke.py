@@ -57,12 +57,33 @@ tolerance and times, goes to ``DIR/kernel_cases.jsonl``, default
 6. lm_serve ``serve_requests`` on the same model: 8 slots, 16 requests of
             32 tokens, cache_len 4096 (decode is plain tensor ops, as the
             reference's: no kernel launches);
+6b. lm_prune  LM pruning on the same model (before it is freed):
+            ``build_groups`` (LM_PRUNE_GROUPS: 3 pattern positions over
+            12 stacked cycles and the 2 unstacked tail layers),
+            ``l2_scores`` timed (one warm-up and LM_TIMED runs, exactly
+            one group-L2 forward launch each, over the tail's 30 tensors,
+            and no other kernel: the stacked cycles are plain ops),
+            ``make_masks`` at LM_PRUNE_RATIO and ``compact`` timed (no
+            launch, every leaf's dtype kept); the pruned config must be
+            LM_PRUNED, what ``kept_count`` gives (d_ff 12288 -> 6912,
+            lru_width 4096 -> 2304, the one KV head), and its tree must
+            hold ``count_params_analytic``'s count; then one warm-up and
+            LM_TIMED prefills of the pruned model at B = 2, S = 4096:
+            26 scans at W = 2304 and 12 attentions each, no U-Net
+            kernel; its median beside the dense one's, tokens/s, peak;
 7. lm_consistency  recurrentgemma-9b at depth 5 (one cycle plus the
             two-layer tail), full width, fp32: the last position's
             prefill logits (scan and windowed attention kernels) against
             the decode logits after the same 2304 tokens one by one
             (plain ``rglru_decode`` and ring-buffer ``attend``), within
-            LM_TOL of max|logit|; 2304 is past the 2048 window;
+            LM_TOL of max|logit|; 2304 is past the 2048 window.  Then
+            pruning on the same weights: the prefill logits of
+            ``apply_masks(params)`` against the compacted model's,
+            within LM_TOL of max|logit| (one group-L2 launch for the
+            scores), and Omega with its gradient in every member leaf
+            (one group-L2 forward and one backward launch) against the
+            plain route on CPU copies of the layers: Omega within
+            TOL["float32"], each leaf within GRAD_TOL of its largest;
 7h. lm_train  ``build_opt_init`` and ``build_train_step`` on full-width
             recurrentgemma-9b cut to LM_TRAIN_DEPTH = 3 layers (one rec,
             rec, local-attention cycle, 2,753,654,784 params): bf16
@@ -305,7 +326,9 @@ resumed pair counted as one), and read just after it.  Group-L2
 launches once per Omega evaluation and once per pruning score: the
 sequential training run must launch it once a sparse step plus once at R_s, the
 vectorized one once a batched sparse step plus once at R_s, the 0.44
-serving run once.
+serving run once; ``lm_prune`` once a score evaluation, and
+``lm_consistency`` once for its scores and once forward and once
+backward for its Omega.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  In the kernels line each kernel's
@@ -363,7 +386,8 @@ GRAD_LEAF_FLOOR = 1e-2
 # the attention kernel vs the plain ring-buffer attention)
 LM_TOL = 1e-4
 SERVE_PATHS = (("dense", []), ("pruned", ["--prune-ratio", "0.44"]))
-LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency", "lm_train")
+LM_PATHS = ("lm_prefill", "lm_serve", "lm_consistency", "lm_prune",
+            "lm_train")
 # phases 7j-7m: moonshot at full width and depth (prefill, serving), each
 # MoE/MLA config at full width cut to MOE_DEPTH layers in fp32 (prefill
 # against decode), moonshot's train step at MOE_TRAIN_DEPTH layers
@@ -424,9 +448,10 @@ WKV_DECAYS = {"init": (-7.0, -4.0), "fast": (-0.1, 0.9),
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
 BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "experiment", "baselines",
-                                "faults", "quant", "sweep")
-PATHS = ("dense", "pruned") + TRAIN_PATHS + LM_PATHS + MOE_PATHS \
-    + DENSE_PATHS + RWKV_PATHS + BACKWARD_PATHS[2:]
+                                "faults", "quant", "sweep", "lm_consistency")
+PATHS = tuple(dict.fromkeys(("dense", "pruned") + TRAIN_PATHS + LM_PATHS
+                            + MOE_PATHS + DENSE_PATHS + RWKV_PATHS
+                            + BACKWARD_PATHS[2:]))
 MAIN_PATHS = {"block_masked_matmul": "train", "flash_attention": "train",
               "group_l2_norms": "train", "rglru_scan": "lm_prefill",
               "wkv6": "rwkv_prefill"}
@@ -464,6 +489,17 @@ LM_ARCH = "recurrentgemma-9b"
 LM_BATCH, LM_SEQ, LM_TIMED = 2, 4096, 3
 LM_SERVE = dict(slots=8, requests=16, max_tokens=32, cache_len=4096)
 LM_DEPTH, LM_CONSISTENCY_SEQ = 5, 2304
+# phase 6b (lm_prune): recurrentgemma-9b's groups (3 pattern positions
+# over 12 stacked cycles, 2 unstacked tail layers), pruned at the
+# paper's ratio; masks.kept_count's results at that ratio, 128-aligned
+# channels and lanes, one of the single KV head kept
+LM_PRUNE_RATIO = 0.44
+LM_PRUNE_GROUPS = ("cyc0/lru", "cyc0/ffn", "cyc1/lru", "cyc1/ffn",
+                   "cyc2/heads", "cyc2/ffn", "tail0/lru", "tail0/ffn",
+                   "tail1/lru", "tail1/ffn")
+LM_PRUNED = {"d_ff": 6912, "lru_width": 2304, "num_kv_heads": 1,
+             "num_heads": 16}
+LM_OMEGA_LAMBDA0 = 1e-3
 LM_PROFILE_STEPS = 8
 # phase 7h (lm_train): full width at the least depth that runs both
 # kernels, one (rec, rec, local attention) cycle; bf16 params, an fp32
@@ -788,16 +824,68 @@ def signature_name(key) -> str:
             f"{hashlib.sha1(repr(key).encode()).hexdigest()[:10]}")
 
 
+# group-L2 tally key -> per slot, the first slot that holds the same
+# tensor on the main path (:func:`note_aliases`); keys absent alias none
+GL2_ALIASES = {}
+
+
+def note_aliases(params, groups):
+    """Record which of the one launch's slots over ``groups`` are one
+    tensor (a member owning two axes of it: the RG-LRU's gates), so
+    that the kernel check runs on the same sharing and its bound reads
+    each element once."""
+    from repro_torch.core.pruning import member_table
+    tensors, tab = member_table(params, groups)
+    first = {}
+    alias = tuple(first.setdefault(t.data_ptr(), i)
+                  for i, t in enumerate(tensors))
+    if alias != tuple(range(len(tensors))):
+        GL2_ALIASES[tab.key] = alias
+
+
+def group_l2_bytes(tab, alias):
+    """(member bytes, tensor bytes) a launch of ``tab`` must move at
+    least: every distinct member element read once, and every distinct
+    tensor's gradient written whole (zeros off its members), where the
+    slots ``alias`` maps together are one tensor."""
+    import math
+    from collections import defaultdict
+
+    import torch
+    alias = alias or tuple(range(len(tab.signature[0])))
+    by_tensor = defaultdict(list)
+    for m, v in zip(tab.members, tab.views):
+        by_tensor[alias[m.tensor]].append((m, v))
+    members = tensors = 0
+    for t, mvs in by_tensor.items():
+        shape, dt = tab.signature[0][t]
+        size = getattr(torch, dt).itemsize
+        tensors += math.prod(shape) * size
+        if sum(alias[i] == t for i in range(len(alias))) == 1:
+            members += sum(math.prod(shape) // v[1] * m.size * m.chunk
+                           for m, v in mvs) * size
+            continue
+        seen = torch.zeros(math.prod(shape), dtype=torch.bool)
+        for m, (outer, L, inner) in mvs:
+            seen.view(outer, L, inner)[
+                :, m.offset:m.offset + m.size * m.chunk] = True
+        members += int(seen.sum()) * size
+    C = tab.clients or 1
+    return C * members, C * tensors
+
+
 def check_group_l2(keys, gen, dev, log):
     """keys: the launched tally keys (a launch's whole member table, and
     C for a client-axis table).  Each runs on random tensors of its
-    shapes, in its dtype, and the first also in bf16: the forward
-    against the plain version within TOL["float32"] x max (fp32 sums on
-    both sides), a repeat bitwise equal, the backward bitwise equal to
-    the plain 2 w g; a client-axis table also bitwise against one
-    one-client launch per client, forward and backward.  ``library_ms``
-    is the loop of one ``einsum`` a member that a PyTorch user would
-    write; the bound reads every member element once."""
+    shapes, in its dtype (slots that are one tensor on the main path,
+    GL2_ALIASES, one tensor here too), and the first also in bf16: the
+    forward against the plain version within TOL["float32"] x max (fp32
+    sums on both sides), a repeat bitwise equal, the backward bitwise
+    equal to the plain 2 w g; a client-axis table also bitwise against
+    one one-client launch per client, forward and backward.
+    ``library_ms`` is the loop of one ``einsum`` a member that a
+    PyTorch user would write; the bound reads every distinct member
+    element once and writes every distinct gradient once."""
     import torch
     from repro_torch.kernels.group_l2_norms import ops as gl2
     worst = 0.0
@@ -810,8 +898,11 @@ def check_group_l2(keys, gen, dev, log):
         C = sig[2] if len(sig) > 2 else None
         tab = gl2.table(sig[:2], clients=C)
         lead = () if C is None else (C,)
+        alias = GL2_ALIASES.get(sig)
         tensors = [torch.randn(lead + shape, generator=gen, device=dev).to(
             getattr(torch, dt)) for shape, dt in sig[0]]
+        if alias is not None:
+            tensors = [tensors[a] for a in alias]
         g = torch.randn(tab.out_units, generator=gen, device=dev)
         got = gl2.segmented_sq_norms(tensors, tab)
         again = gl2.segmented_sq_norms(tensors, tab)
@@ -850,14 +941,13 @@ def check_group_l2(keys, gen, dev, log):
                 out.append(acc)
             return out
 
-        nbytes = tab.member_bytes()
+        nbytes, grad_bytes = group_l2_bytes(tab, alias)
         elems = sum(v.numel() for v in views)
-        zeroed = sum(t.numel() * t.element_size()
-                     for t, c in zip(tensors, tab.covered) if not c)
         dtypes = "/".join(sorted({dt for _, dt in sig[0]}))
         common = {"kernel": "group_l2_norms", "key": key,
                   "signature": signature_name(sig), "clients": C,
                   "members": len(tab.members), "tensors": len(tensors),
+                  "shared_tensors": alias is not None,
                   "units": tab.out_units, "work_items": tab.counts[1],
                   "dtype": dtypes}
         b_ms, b_by = bound_ms(2.0 * elems, nbytes + 4 * tab.out_units,
@@ -871,8 +961,8 @@ def check_group_l2(keys, gen, dev, log):
                "library_ms": time_ms(library),
                "bound_ms": b_ms, "bound_by": b_by}
         log(row)
-        b_ms, b_by = bound_ms(2.0 * elems, 2 * nbytes + 4 * tab.out_units
-                              + zeroed, "float32")
+        b_ms, b_by = bound_ms(2.0 * elems, nbytes + 4 * tab.out_units
+                              + grad_bytes, "float32")
         bwd_equal = all(torch.equal(x, y) for x, y in zip(dw, dw_want))
         log({**common, "role": "bwd", "bitwise_equal": bwd_equal,
              "ms": time_ms(lambda: gl2.segmented_sq_norms_backward(
@@ -1213,9 +1303,10 @@ def lm_kinds(cfg):
     return n_rec, len(kinds) - n_rec
 
 
-def lm_prefill_phase(cfg, params, dev, counters, zero_counters):
-    """One warm-up and LM_TIMED timed prefills of B = 2, S = 4096; returns
-    the run's tallies."""
+def lm_prefill_runs(cfg, params, dev, counters, zero_counters):
+    """One warm-up and LM_TIMED timed prefills of B = 2, S = 4096, the
+    counters zeroed just before: (seconds per run, the last logits, the
+    launches, the tallies, the peak memory)."""
     import numpy as np
     import torch
     from repro_torch.launch.steps import build_prefill_step
@@ -1224,6 +1315,7 @@ def lm_prefill_phase(cfg, params, dev, counters, zero_counters):
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                              (LM_BATCH, LM_SEQ))
     batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
     times = []
@@ -1233,32 +1325,172 @@ def lm_prefill_phase(cfg, params, dev, counters, zero_counters):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {k: fn.launches for k, fn in counters.items()}
-    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
+    return (times, logits, launches, tally_of(counters),
+            torch.cuda.max_memory_allocated(dev))
+
+
+def check_lm_prefill(phase, cfg, logits, launches, tally, width=None):
+    """26 scan and 12 attention launches a prefill (scans at ``width``
+    lanes if given), no other kernel, finite logits of the right
+    shape."""
     n_rec, n_attn = lm_kinds(cfg)
     runs = 1 + LM_TIMED
+    finite = bool(torch_isfinite(logits))
+    require((n_rec, n_attn) == (26, 12),
+            f"{phase}: {cfg.name} plans {n_rec} recurrent and {n_attn} "
+            f"attention layers, want 26 and 12")
+    require(launches["rglru_scan"] == n_rec * runs
+            and launches["flash_attention"] == n_attn * runs,
+            f"{phase}: launches {launches} over {runs} prefills, want "
+            f"{n_rec} scans and {n_attn} attentions each")
+    require(all(n == 0 for k, n in launches.items()
+                if k not in ("rglru_scan", "flash_attention"))
+            and not any(tally[k] for k in ("block_masked_matmul_dx",
+                                           "group_l2_norms_bwd",
+                                           "rglru_scan_bwd", "wkv6_bwd")),
+            f"{phase}: another kernel was launched: {launches}")
+    require(width is None or all(k[2] == width for k in tally["rglru_scan"]),
+            f"{phase}: scans at {sorted(tally['rglru_scan'])}, want "
+            f"{width} lanes")
+    require(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and finite,
+            f"{phase}: logits {tuple(logits.shape)}, finite={finite}")
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def lm_prefill_phase(cfg, params, dev, counters, zero_counters):
+    """One warm-up and LM_TIMED timed prefills of B = 2, S = 4096; returns
+    the run's tallies and the median prefill's seconds."""
+    import numpy as np
+    times, logits, launches, tally, peak = lm_prefill_runs(
+        cfg, params, dev, counters, zero_counters)
+    runs = 1 + LM_TIMED
     med = float(np.median(times[1:]))
-    finite = bool(torch.isfinite(logits).all())
     emit("lm_prefill", model=cfg.name, layers=cfg.num_layers,
          dtype=cfg.dtype, batch=LM_BATCH, seq=LM_SEQ, cut="none",
          warmup_ms=times[0] * 1e3, prefill_ms=[t * 1e3 for t in times[1:]],
          prefill_ms_median=med * 1e3, tokens_per_s=LM_BATCH * LM_SEQ / med,
-         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
-         prefills=runs, launches=launches,
+         peak_mem_bytes=peak, prefills=runs, launches=launches,
          launches_per_prefill={k: v / runs for k, v in launches.items()},
-         logits_shape=list(logits.shape), finite=finite,
+         logits_shape=list(logits.shape), finite=torch_isfinite(logits),
          max_abs_logit=float(logits.float().abs().max()))
-    require((n_rec, n_attn) == (26, 12),
-            f"lm_prefill: {cfg.name} plans {n_rec} recurrent and {n_attn} "
-            f"attention layers, want 26 and 12")
-    require(launches["rglru_scan"] == n_rec * runs
-            and launches["flash_attention"] == n_attn * runs,
-            f"lm_prefill: launches {launches} over {runs} prefills, want "
-            f"{n_rec} scans and {n_attn} attentions each")
-    require(launches["block_masked_matmul"] == 0
-            and launches["group_l2_norms"] == 0,
-            f"lm_prefill: a U-Net kernel was launched: {launches}")
-    require(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and finite,
-            f"lm_prefill: logits {tuple(logits.shape)}, finite={finite}")
+    check_lm_prefill("lm_prefill", cfg, logits, launches, tally)
+    return tally, med
+
+
+def lm_prune_phase(cfg, params, dev, counters, zero_counters, dense_s):
+    """Phase 6b: ``build_groups`` of the full bf16 model, ``l2_scores``
+    timed (one warm-up, LM_TIMED timed: one group-L2 launch each over the
+    two tail layers, plain ops for the stacked cycles), ``make_masks`` at
+    LM_PRUNE_RATIO, ``compact`` timed, the pruned config and parameter
+    count against ``count_params_analytic``, then LM_TIMED + 1 prefills
+    of the pruned model beside the dense one's median ``dense_s``.
+    Frees the pruned tree; returns the scores' and prefills' tallies."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import state_dict
+    from repro_torch.core.pruning import (build_groups, compact, kept_count,
+                                          l2_scores, make_masks)
+    from repro_torch.metrics.flops import count_params_analytic
+
+    groups = build_groups(cfg, params)
+    note_aliases(params, groups)
+    require(tuple(g.name for g in groups) == LM_PRUNE_GROUPS
+            and [g.stacked for g in groups] == [12] * 6 + [0] * 4,
+            f"lm_prune: groups {[(g.name, g.stacked) for g in groups]}")
+    torch.cuda.synchronize()
+    zero_counters()
+    score_s = []
+    for _ in range(1 + LM_TIMED):
+        t0 = time.perf_counter()
+        scores = l2_scores(params, groups)
+        torch.cuda.synchronize()
+        score_s.append(time.perf_counter() - t0)
+    score_launches = {k: fn.launches for k, fn in counters.items()}
+    score_tally = tally_of(counters)
+    runs = 1 + LM_TIMED
+    require(score_launches == {k: runs if k == "group_l2_norms" else 0
+                               for k in counters}
+            and not any(score_tally[k] for k in (
+                "group_l2_norms_bwd", "block_masked_matmul_dx",
+                "rglru_scan_bwd", "wkv6_bwd")),
+            f"lm_prune: {runs} score evaluations launched {score_launches} "
+            f"and backward {score_tally['group_l2_norms_bwd']}, want one "
+            f"group-L2 forward each and nothing else")
+    require(all(tuple(v.shape) == ((g.stacked, g.size) if g.stacked
+                                   else (g.size,))
+                and torch_isfinite(v) for g in groups
+                for v in (scores[g.name],)),
+            "lm_prune: a score has the wrong shape or is not finite")
+    masks = make_masks(scores, groups, LM_PRUNE_RATIO)
+    want = {"d_ff": kept_count(groups[1], LM_PRUNE_RATIO),
+            "lru_width": kept_count(groups[0], LM_PRUNE_RATIO),
+            "num_kv_heads": kept_count(groups[4], LM_PRUNE_RATIO)}
+    want["num_heads"] = want["num_kv_heads"] * cfg.q_per_kv
+    require(want == LM_PRUNED, f"lm_prune: kept_count gives {want}, the "
+            f"phase expects {LM_PRUNED}")
+    dense_n = sum(v.numel() for v in state_dict(params).values())
+    dense_bytes = tensor_bytes(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    pruned, pcfg, report = compact(params, cfg, groups, masks)
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    compact_peak = torch.cuda.max_memory_allocated(dev) - base
+    compact_launches = {k: fn.launches for k, fn in counters.items()}
+    leaves = state_dict(pruned)
+    n = sum(v.numel() for v in leaves.values())
+    analytic = count_params_analytic(pcfg)
+    got = {k: getattr(pcfg, k) for k in LM_PRUNED}
+    # bf16 everywhere but the fp32 leaves the port's init makes fp32
+    dtypes = {k: str(v.dtype).removeprefix("torch.")
+              for k, v in leaves.items()}
+    dense_dtypes = {k: str(v.dtype).removeprefix("torch.")
+                    for k, v in state_dict(params).items()}
+    times, logits, launches, tally, peak = lm_prefill_runs(
+        pcfg, pruned, dev, counters, zero_counters)
+    med = float(np.median(times[1:]))
+    emit("lm_prune", model=cfg.name, pruned_model=pcfg.name,
+         layers=cfg.num_layers, dtype=cfg.dtype, ratio=LM_PRUNE_RATIO,
+         groups=[[g.name, g.size, g.stacked, report[g.name][0]]
+                 for g in groups],
+         score_ms=[t * 1e3 for t in score_s[1:]],
+         score_ms_median=float(np.median(score_s[1:])) * 1e3,
+         score_warmup_ms=score_s[0] * 1e3, score_launches=score_launches,
+         compact_ms=compact_s * 1e3, compact_peak_extra_bytes=compact_peak,
+         compact_launches=compact_launches, config=got,
+         params_dense=dense_n, params_pruned=n,
+         params_pruned_analytic=analytic, bytes_dense=dense_bytes,
+         bytes_pruned=tensor_bytes(pruned), batch=LM_BATCH, seq=LM_SEQ,
+         warmup_ms=times[0] * 1e3, prefill_ms=[t * 1e3 for t in times[1:]],
+         prefill_ms_median=med * 1e3,
+         dense_prefill_ms_median=dense_s * 1e3,
+         vs_dense=med / dense_s, tokens_per_s=LM_BATCH * LM_SEQ / med,
+         peak_mem_bytes=peak, launches=launches,
+         launches_per_prefill={k: v / (1 + LM_TIMED)
+                               for k, v in launches.items()},
+         scan_shapes=sorted(tally["rglru_scan"]),
+         finite=torch_isfinite(logits))
+    require(got == LM_PRUNED and pcfg.name == cfg.name + "-pruned",
+            f"lm_prune: the pruned config is {pcfg.name} {got}, want "
+            f"{LM_PRUNED}")
+    require(n == analytic, f"lm_prune: the pruned tree holds {n} params, "
+            f"count_params_analytic {analytic}")
+    require(dtypes == dense_dtypes, "lm_prune: compaction changed a "
+            "leaf's dtype")
+    require(all(v == 0 for v in compact_launches.values()),
+            f"lm_prune: compaction launched {compact_launches}")
+    check_lm_prefill("lm_prune", pcfg, logits, launches, tally,
+                     width=LM_PRUNED["lru_width"])
+    del pruned, leaves
+    torch.cuda.empty_cache()
+    merge_tally(tally, score_tally)
     return tally
 
 
@@ -1310,7 +1542,8 @@ def lm_serve_phase(cfg, params, dev, counters, zero_counters,
 
 def lm_consistency_phase(cfg, dev, counters, zero_counters):
     """Depth-LM_DEPTH fp32 model: the prefill's last logits (kernels)
-    against decode's after the same tokens one by one (plain ops)."""
+    against decode's after the same tokens one by one (plain ops); then
+    :func:`lm_prune_consistency` on the same weights and tokens."""
     import numpy as np
     import torch
     from repro_torch.convert import state_dict
@@ -1328,7 +1561,7 @@ def lm_consistency_phase(cfg, dev, counters, zero_counters):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    tally = {k: dict(fn.shapes) for k, fn in counters.items()}
+    tally = tally_of(counters)
     cache = model.init_cache(params, cfg, 1, LM_CONSISTENCY_SEQ)
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -1341,6 +1574,9 @@ def lm_consistency_phase(cfg, dev, counters, zero_counters):
     err = float((pre - dec).abs().max())
     scale = float(dec.abs().max())
     n_rec, n_attn = lm_kinds(cfg)
+    prune, prune_tally = lm_prune_consistency(cfg, params, toks, dev,
+                                              counters, zero_counters)
+    merge_tally(tally, prune_tally)
     emit("lm_consistency", model=cfg.name, layers=cfg.num_layers,
          dtype=cfg.dtype, seq=LM_CONSISTENCY_SEQ,
          window=cfg.sliding_window, cut=f"depth {LM_DEPTH} of 38",
@@ -1349,7 +1585,7 @@ def lm_consistency_phase(cfg, dev, counters, zero_counters):
          / LM_CONSISTENCY_SEQ, max_abs_err=err, max_abs_logit=scale,
          tol=LM_TOL * scale, same_argmax=bool(
              torch.equal(pre.argmax(-1), dec.argmax(-1))),
-         prefill_launches=launches)
+         prefill_launches=launches, prune=prune)
     require(launches["rglru_scan"] == n_rec
             and launches["flash_attention"] == n_attn,
             f"lm_consistency: prefill launches {launches}, want {n_rec} "
@@ -1360,7 +1596,98 @@ def lm_consistency_phase(cfg, dev, counters, zero_counters):
             and err <= LM_TOL * scale,
             f"lm_consistency: prefill vs decode logits err {err} > "
             f"{LM_TOL} x {scale}")
+    p = prune
+    require(p["mask_vs_compact_err"] <= p["mask_vs_compact_tol"],
+            f"lm_consistency: masked vs compacted logits err "
+            f"{p['mask_vs_compact_err']} > {p['mask_vs_compact_tol']}")
+    require(p["prune_launches"] == p["prune_launches_want"],
+            f"lm_consistency: scoring and the two prefills launched "
+            f"{p['prune_launches']}, want {p['prune_launches_want']}")
+    require(p["omega_launches"] == p["omega_launches_want"],
+            f"lm_consistency: Omega and its gradient launched "
+            f"{p['omega_launches']}, want {p['omega_launches_want']}")
+    require(p["omega_err"] <= p["omega_tol"],
+            f"lm_consistency: Omega {p['omega']} off the plain route's by "
+            f"{p['omega_err']} > {p['omega_tol']}")
+    require(p["omega_grad_err_rel"] <= GRAD_TOL,
+            f"lm_consistency: an Omega gradient leaf is off the plain "
+            f"route's by {p['omega_grad_err_rel']} of its largest, past "
+            f"{GRAD_TOL}")
     return tally
+
+
+def lm_prune_consistency(cfg, params, toks, dev, counters, zero_counters):
+    """On the depth-LM_DEPTH fp32 model (one stacked cycle and the
+    unstacked two-layer tail): the prefill's last logits of the model
+    with its pruned units zeroed (``apply_masks``) against the
+    compacted model's, within LM_TOL of max|logit|, from one score
+    evaluation (one group-L2 launch) and masks at LM_PRUNE_RATIO; then
+    Omega and its gradient in every member leaf, one forward and one
+    backward group-L2 launch, against the plain route on CPU copies of
+    the layers.  Returns (the line's fields, the launches' tallies)."""
+    import torch
+    from repro_torch.core.pruning import (apply_masks, build_groups,
+                                          compact, depth_lambdas, get_path,
+                                          l2_scores, make_masks, omega,
+                                          set_path)
+    from repro_torch.launch.steps import build_prefill_step
+
+    groups = build_groups(cfg, params)
+    note_aliases(params, groups)
+    n_rec, n_attn = lm_kinds(cfg)
+    zero_counters()
+    masks = make_masks(l2_scores(params, groups), groups, LM_PRUNE_RATIO)
+    masked = apply_masks(params, groups, masks)
+    pre_masked = build_prefill_step(cfg)(masked, {"tokens": toks})
+    del masked
+    pruned, pcfg, _ = compact(params, cfg, groups, masks)
+    pre_pruned = build_prefill_step(pcfg)(pruned, {"tokens": toks})
+    torch.cuda.synchronize()
+    del pruned
+    prune_launches = {k: fn.launches for k, fn in counters.items()}
+    tally = tally_of(counters)
+    err = float((pre_masked - pre_pruned).abs().max())
+    scale = float(pre_masked.abs().max())
+
+    paths = list(dict.fromkeys(m.path for g in groups for m in g.members))
+    lam = depth_lambdas(groups, LM_OMEGA_LAMBDA0)
+    layers = {"cycles": params["cycles"], "tail": params["tail"]}
+
+    def omega_and_grads(tree):
+        leaves = [get_path(tree, p).detach().requires_grad_()
+                  for p in paths]
+        for p, leaf in zip(paths, leaves):
+            tree = set_path(tree, p, leaf)
+        om = omega(tree, groups, lam)
+        return om.detach(), torch.autograd.grad(om, leaves)
+
+    zero_counters()
+    om, grads = omega_and_grads(layers)
+    torch.cuda.synchronize()
+    omega_launches = {k: fn.launches for k, fn in counters.items()}
+    omega_launches["group_l2_norms_bwd"] = \
+        counters["group_l2_norms"].bwd_launches
+    merge_tally(tally, tally_of(counters))
+    om_cpu, grads_cpu = omega_and_grads(to_device(layers, "cpu"))
+    # a leaf the init zeroes (the gates' biases) has a zero gradient
+    grad_rel = max(float((g.cpu() - w).abs().max())
+                   / (float(w.abs().max()) or 1.0)
+                   for g, w in zip(grads, grads_cpu))
+    kernels = dict.fromkeys(counters, 0)
+    return {"pruned_model": pcfg.name, "lru_width": pcfg.lru_width,
+            "d_ff": pcfg.d_ff, "mask_vs_compact_err": err,
+            "max_abs_logit": scale, "mask_vs_compact_tol": LM_TOL * scale,
+            "prune_launches": prune_launches,
+            "prune_launches_want": {**kernels, "group_l2_norms": 1,
+                                    "rglru_scan": 2 * n_rec,
+                                    "flash_attention": 2 * n_attn},
+            "omega": float(om), "omega_plain": float(om_cpu),
+            "omega_err": abs(float(om) - float(om_cpu)),
+            "omega_tol": TOL["float32"] * abs(float(om_cpu)),
+            "omega_grad_leaves": len(grads), "omega_grad_err_rel": grad_rel,
+            "omega_launches": omega_launches,
+            "omega_launches_want": {**kernels, "group_l2_norms": 1,
+                                    "group_l2_norms_bwd": 1}}, tally
 
 
 # ---------------------------------------------------------------------------
@@ -4888,10 +5215,13 @@ def run(out_dir: str, profile: bool = False) -> dict:
     lm_gen = torch.Generator(dev)
     lm_gen.manual_seed(0)
     lm_params = lm_model.init(lm_cfg, lm_gen, device=dev)
-    tallies["lm_prefill"] = lm_prefill_phase(lm_cfg, lm_params, dev,
-                                             counters, zero_counters)
+    tallies["lm_prefill"], lm_dense_s = lm_prefill_phase(
+        lm_cfg, lm_params, dev, counters, zero_counters)
     tallies["lm_serve"] = lm_serve_phase(lm_cfg, lm_params, dev, counters,
                                          zero_counters)
+    # -- 6b. LM pruning: score, mask and compact the full model, prefill
+    tallies["lm_prune"] = lm_prune_phase(lm_cfg, lm_params, dev, counters,
+                                         zero_counters, lm_dense_s)
     if profile:
         os.makedirs(out_dir, exist_ok=True)
         lm_profile_phase(lm_cfg, lm_params, dev, out_dir)

@@ -117,6 +117,11 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def q_per_kv(self) -> int:
+        """Query heads per KV head (G of GQA)."""
+        return max(1, self.num_heads // max(1, self.num_kv_heads))
+
 
 @dataclass(frozen=True)
 class InputShape:

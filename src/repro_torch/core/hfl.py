@@ -69,8 +69,8 @@ from repro_torch.configs.base import (FLConfig, ModelConfig,
 from repro_torch.convert import params_from_jax
 from repro_torch.core.aggregation import (aggregate_fedavg, aggregate_sh,
                                           fedavg_weights, sh_weights)
-from repro_torch.core.pruning import (compact, l2_scores, make_masks,
-                                      random_scores, unet_groups)
+from repro_torch.core.pruning import (build_groups, compact, l2_scores,
+                                      make_masks, random_scores)
 from repro_torch.core.selection import random_selection, select_edge
 from repro_torch.core.sh_score import (AccumulatedDistribution, sh_score,
                                        uniform_target)
@@ -235,7 +235,7 @@ class FedPhD:
         self.edges = [AccumulatedDistribution(num_classes)
                       for _ in range(fl.num_edges)]
         self.params = model.init(self.cfg, self.gen, device=self.device)
-        self.groups = unet_groups(self.cfg, self.params)
+        self.groups = build_groups(self.cfg, self.params)
         self.comm = CommModel()
         self.history: List[RoundRecord] = []
         self.pruned = False
@@ -272,7 +272,7 @@ class FedPhD:
         masks = make_masks(scores, self.groups, self.fl.prune_ratio)
         self.params, self.cfg, self.prune_report = compact(
             self.params, self.cfg, self.groups, masks)
-        self.groups = unet_groups(self.cfg, self.params)
+        self.groups = build_groups(self.cfg, self.params)
         self.pruned = True
 
     def _rebuild_steps(self) -> None:
@@ -733,7 +733,7 @@ class FedPhD:
         self.cfg = cfg.replace(precision=resolve_precision(cfg.precision))
         self.pruned = bool(meta["pruned"])
         self.params = params_from_jax(arrays["params"], self.device)
-        self.groups = unet_groups(self.cfg, self.params)
+        self.groups = build_groups(self.cfg, self.params)
         self._edge_models = None if arrays.get("edge_models") is None else \
             {int(e): params_from_jax(m, self.device)
              for e, m in arrays["edge_models"].items()}

@@ -33,8 +33,9 @@ def kept_count(g: PruneGroup, ratio: float) -> int:
 
 def make_masks(scores: Dict[str, torch.Tensor], groups: List[PruneGroup],
                ratio: float) -> Dict[str, torch.Tensor]:
-    """Top-k-by-score 0/1 float32 masks per group.  Ranks come from a
-    stable argsort, so ties break by index and exactly k units survive."""
+    """Top-k-by-score 0/1 float32 masks per group (per cycle, one row
+    each, for a stacked group).  Ranks come from a stable argsort, so
+    ties break by index and exactly k units of a row survive."""
     masks = {}
     for g in groups:
         s = scores[g.name]
@@ -45,7 +46,7 @@ def make_masks(scores: Dict[str, torch.Tensor], groups: List[PruneGroup],
 
 
 def keep_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
-    """Sorted indices of the kept units of a (size,) mask."""
+    """Sorted indices of the kept units: a (..., size) mask -> (..., k)."""
     idx = torch.argsort(-mask, dim=-1, stable=True)[..., :k]
     return torch.sort(idx, dim=-1).values
 

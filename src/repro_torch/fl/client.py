@@ -33,6 +33,7 @@ from repro_torch.data.pipeline import ClientData
 from repro_torch.diffusion.ddpm import q_sample
 from repro_torch.diffusion.schedule import linear_schedule
 from repro_torch.models import model
+from repro_torch.models import transformer as tfm
 from repro_torch.models.ops import cast_floats, compute_dtype
 from repro_torch.models.unet import apply_unet
 from repro_torch.optim import adam_init, adam_update
@@ -49,22 +50,27 @@ def tree_sq_dist(a, b, clients: Optional[int] = None):
     return sum(leaf(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def model_features(params, cfg: ModelConfig, images: torch.Tensor,
-                   eps: torch.Tensor, *, clients: Optional[int] = None):
-    """MOON's representation of a U-Net: its noise prediction at the
-    fixed mid-schedule t = T // 2 for the images noised by ``eps``,
-    flattened per image (the reference's choice: MOON's penultimate
-    layer has no counterpart in an eps-predictor).  ``clients=C``:
-    stacked params, C clients' images one after another."""
+def model_features(params, cfg: ModelConfig, inputs, eps=None, *,
+                   clients: Optional[int] = None):
+    """MOON's representation.  A U-Net's: its noise prediction at the
+    fixed mid-schedule t = T // 2 for the images ``inputs`` noised by
+    ``eps``, flattened per image (the reference's choice: MOON's
+    penultimate layer has no counterpart in an eps-predictor);
+    ``clients=C``: stacked params, C clients' images one after another.
+    A transformer's: the mean over the sequence of ``forward``'s hidden
+    states for the token batch ``inputs`` (``eps`` unused; no client
+    axis)."""
     if cfg.arch_type != "unet":
-        raise NotImplementedError(f"MOON features of {cfg.name!r} "
-                                  f"({cfg.arch_type}): transformer "
-                                  f"training is ROADMAP A.13")
-    sched = linear_schedule(cfg.diffusion_steps, device=images.device)
-    B = images.shape[0]
+        if clients is not None:
+            raise ValueError(f"clients={clients}: the client axis stacks "
+                             f"U-Net parameters only")
+        hidden, _ = tfm.forward(params, cfg, inputs)
+        return torch.mean(hidden, dim=1)
+    sched = linear_schedule(cfg.diffusion_steps, device=inputs.device)
+    B = inputs.shape[0]
     t = torch.full((B,), cfg.diffusion_steps // 2, dtype=torch.int64,
-                   device=images.device)
-    pred = apply_unet(params, cfg, q_sample(sched, images, t, eps), t,
+                   device=inputs.device)
+    pred = apply_unet(params, cfg, q_sample(sched, inputs, t, eps), t,
                       clients=clients)
     return pred.reshape(B, -1)
 

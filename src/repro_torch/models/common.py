@@ -21,6 +21,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 def normal(generator: torch.Generator, shape, std: float, dtype,
            device) -> torch.Tensor:
+    if torch.device(device).type == "meta":     # shapes only: no values
+        return torch.empty(shape, dtype=dtype, device=device)
     # scaled in place: a full-width fp32 expert leaf (15 GB for
     # deepseek-v3) is held once, not twice
     return torch.randn(shape, generator=generator,

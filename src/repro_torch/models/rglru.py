@@ -30,8 +30,9 @@ def init_rglru(generator: torch.Generator, d_model: int, lru_width: int,
         return torch.zeros((W,), dtype=dtype, device=device)
 
     # Lambda parametrized so a = exp(-c*softplus(L)) starts near 0.9..0.999
-    log_lambda = torch.rand((W,), generator=generator, device=device) \
-        * 3.3 - 4.3
+    # in place: on the meta device no arithmetic decomposition to load
+    log_lambda = torch.rand((W,), generator=generator,
+                            device=device).mul_(3.3).sub_(4.3)
     return {
         "w_x": dense(d_model, W),                 # recurrent branch in
         "w_y": dense(d_model, W),                 # gate branch in

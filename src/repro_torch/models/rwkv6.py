@@ -26,8 +26,10 @@ _LOG_CLAMP = 25.0
 
 
 def _uniform(generator, shape, lo, hi, device):
-    return torch.rand(shape, generator=generator, device=device) \
-        * (hi - lo) + lo
+    # in place, as everywhere in these initializers: the same values, and
+    # on the meta device no arithmetic decomposition to load
+    return torch.rand(shape, generator=generator,
+                      device=device).mul_(hi - lo).add_(lo)
 
 
 def init_rwkv_tmix(generator: torch.Generator, d_model: int, num_heads: int,
@@ -40,8 +42,8 @@ def init_rwkv_tmix(generator: torch.Generator, d_model: int, num_heads: int,
         return dense_init(generator, i, o, dtype, device=device)
 
     return {
-        "mu_base": (_uniform(generator, (d,), 0, 1, device) * 0.5).to(dtype),
-        "mu": (_uniform(generator, (_MIX, d), 0, 1, device) * 0.5).to(dtype),
+        "mu_base": _uniform(generator, (d,), 0, 1, device).mul_(0.5).to(dtype),
+        "mu": _uniform(generator, (_MIX, d), 0, 1, device).mul_(0.5).to(dtype),
         "lora_a": normal(generator, (_MIX, d, _LORA_R), 0.01, dtype, device),
         "lora_b": normal(generator, (_MIX, _LORA_R, d), 0.01, dtype, device),
         "w0": _uniform(generator, (dh,), -7.0, -4.0, device),
@@ -64,10 +66,10 @@ def init_rwkv_cmix(generator: torch.Generator, d_model: int, d_ff: int,
         return dense_init(generator, i, o, dtype, device=device)
 
     return {
-        "mu_k": (_uniform(generator, (d_model,), 0, 1, device) * 0.5
-                 ).to(dtype),
-        "mu_r": (_uniform(generator, (d_model,), 0, 1, device) * 0.5
-                 ).to(dtype),
+        "mu_k": _uniform(generator, (d_model,), 0, 1, device).mul_(0.5
+                                                                    ).to(dtype),
+        "mu_r": _uniform(generator, (d_model,), 0, 1, device).mul_(0.5
+                                                                    ).to(dtype),
         "w_k": dense(d_model, d_ff),
         "w_v": dense(d_ff, d_model),
         "w_r": dense(d_model, d_model),

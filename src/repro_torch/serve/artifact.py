@@ -17,7 +17,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig, config_from_dict
 from repro_torch.convert import params_from_jax
 from repro_torch.core.pruning.criteria import l2_scores, random_scores
-from repro_torch.core.pruning.groups import unet_groups
+from repro_torch.core.pruning.groups import build_groups
 from repro_torch.core.pruning.masks import make_masks
 from repro_torch.device import resolve_device
 
@@ -49,7 +49,7 @@ def masks_for_ratio(params, cfg: ModelConfig, ratio: float, *,
     """Serving masks at ``ratio`` as host numpy arrays, the type that
     selects the gather route.  ``l2`` scores run the group sum-of-squares
     kernel on the parameters' device."""
-    groups = unet_groups(cfg, params)
+    groups = build_groups(cfg, params)
     if criterion == "l2":
         scores = l2_scores(params, groups)
     elif criterion == "random":

@@ -77,6 +77,10 @@ from repro_torch.serve.artifact import load_serving_artifact
 from repro_torch.tree import tree_leaves
 
 CPU = torch.device("cpu")
+# the reference's programs compile at XLA's O0 with LLVM's expensive
+# passes off: the same graphs, compiled in less CPU time
+O0 = {"xla_backend_optimization_level": 0,
+      "xla_llvm_disable_expensive_passes": True}
 ONE_LEVEL = dict(channel_mults=(1,), attn_resolutions=(16,))
 TINY = dict(name="tiny", num_classes=4, image_size=16, samples_per_class=2)
 SPEC = ExperimentSpec(
@@ -449,7 +453,8 @@ def test_proxy_metrics_match_reference(monkeypatch):
         assert np.array_equal(got[k], np.asarray(want[k]))
     with pytest.raises(ValueError, match="export_fid_features"):
         fid._feature_params(1)
-    monkeypatch.setattr(jfid, "_features", jax.jit(jfid._features))
+    monkeypatch.setattr(jfid, "_features", jax.jit(jfid._features,
+                                                   compiler_options=O0))
     r = np.random.default_rng(4)
     real = np.tanh(r.standard_normal((24, 32, 32, 3))).astype(np.float32)
     fake = np.tanh(0.6 * r.standard_normal((24, 32, 32, 3)) + 0.3) \
@@ -512,7 +517,8 @@ def test_apply_masks_sparsity_report_cosine_match_reference():
     assert sparsity_report(groups, masks) == jsparsity_report(jgroups,
                                                               jmasks)
     # one program, not an eager compile per member's op
-    zeroed = jax.jit(lambda p, m: japply_masks(p, jgroups, m))(jp, jmasks)
+    zeroed = jax.jit(lambda p, m: japply_masks(p, jgroups, m),
+                     compiler_options=O0)(jp, jmasks)
     assert _leaves_equal(zeroed, apply_masks(params, groups, masks))
     assert _leaves_equal(nparams, params)       # the input is unchanged
     # fp32 cos differs by an ulp between the packages, and each beta,

@@ -47,7 +47,8 @@ CACHE_LEN = 32
 # dot vs torch's, an associative vs a sequential scan), so the logits
 # agree to a few ulps of their largest value
 LOGIT_TOL = 1e-4
-# the reference's attention runs as one program at XLA's O0 with LLVM's
+# the reference's programs (attention, the scan oracle, the RG-LRU
+# block, prefill and decode) run at XLA's O0 with LLVM's
 # expensive passes off: run eagerly, JAX compiles each op on its own
 O0 = {"xla_backend_optimization_level": 0,
       "xla_llvm_disable_expensive_passes": True}
@@ -130,7 +131,8 @@ def test_scan_plain_matches_pallas_and_oracle(dtype):
                         np.float32)
     # the oracle's associative scan in one program: run eagerly it
     # compiles each of its ops on its own (~5 s of the test)
-    oracle = np.asarray(jax.jit(rglru_scan_ref)(ja, jb), np.float32)
+    oracle = np.asarray(jax.jit(rglru_scan_ref, compiler_options=O0)(ja, jb),
+                        np.float32)
     if dtype == "float32":
         # tests/test_kernels.py's tolerance for the kernel vs the oracle
         np.testing.assert_allclose(got, pallas, atol=1e-4, rtol=0)
@@ -155,7 +157,8 @@ def test_apply_rglru_matches_jax(weights):
     x = np.random.default_rng(3).standard_normal(
         (2, S_PREFILL, CFG.d_model)).astype(np.float32)
     want = jax.jit(lambda p, x: jax_rglru.apply_rglru(
-        p, x, conv_width=CFG.conv1d_width))(jp, jnp.asarray(x))
+        p, x, conv_width=CFG.conv1d_width), compiler_options=O0)(
+            jp, jnp.asarray(x))
     got = rglru.apply_rglru(tp, torch.from_numpy(x),
                             conv_width=CFG.conv1d_width)
     # fp32 GEMMs of width 256 and a 128-step recurrence in two orders
@@ -167,8 +170,8 @@ def jax_prefill(weights):
     jparams, _ = weights
     toks = _tokens(2, S_PREFILL)
     return toks, np.asarray(jax.jit(
-        lambda p, t: jax_model.prefill(p, JCFG, {"tokens": t}))(
-            jparams, jnp.asarray(toks)))
+        lambda p, t: jax_model.prefill(p, JCFG, {"tokens": t}),
+        compiler_options=O0)(jparams, jnp.asarray(toks)))
 
 
 def test_prefill_matches_jax(weights, jax_prefill):
@@ -183,7 +186,8 @@ def test_prefill_matches_jax(weights, jax_prefill):
 def test_decode_steps_match_jax(weights):
     jparams, tparams = weights
     toks = _tokens(2, T_DECODE, seed=4)
-    jdec = jax.jit(lambda p, c, t: jax_model.decode(p, c, JCFG, t))
+    jdec = jax.jit(lambda p, c, t: jax_model.decode(p, c, JCFG, t),
+                   compiler_options=O0)
     jcache = jax_model.init_cache(jparams, JCFG, 2, CACHE_LEN)
     tcache = model.init_cache(tparams, CFG, 2, CACHE_LEN)
     for t in range(T_DECODE):

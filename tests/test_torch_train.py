@@ -14,6 +14,7 @@ from ``batch["t"]`` and ``batch["eps"]`` with that package's own
 ``q_sample``, schedule and U-Net.  The trainers call it through the
 module attribute, so no file of either package changes.
 """
+import concurrent.futures
 import dataclasses
 import functools
 
@@ -34,7 +35,8 @@ from repro.core.sh_score import sh_score as jsh_score
 from repro.core import hfl as jhfl
 from repro.core.hfl import FedPhD as JFedPhD
 from repro.core.pruning import build_groups as jbuild_groups
-from repro.core.pruning import compact as jcompact
+from repro.core.pruning.compact import compact_config as jcompact_config
+from repro.core.pruning.compact import compact_params as jcompact_params
 from repro.core.pruning import depth_lambdas as jdepth_lambdas
 from repro.core.pruning import keep_indices as jkeep_indices
 from repro.core.pruning import l2_scores as jl2_scores
@@ -150,11 +152,47 @@ O0 = {"xla_backend_optimization_level": 0,
 def _fast_reference_jit(mp, options=O0):
     """Every ``jax.jit`` made while ``mp`` is active compiles with
     ``options`` (the reference builds its steps with ``@jax.jit``), and
-    the reference's aggregations run as one program per tree instead of
-    eagerly (``_jitted_weighted_average``)."""
+    the reference's aggregations, its clients' fresh Adam states and its
+    prune (masks and compaction) run as one program per tree instead of
+    eagerly (``_jitted_weighted_average``, ``_adam_init_o0``,
+    ``_make_masks_o0``, ``_compact_o0``)."""
     mp.setattr(jax, "jit", functools.partial(jax.jit,
                                              compiler_options=options))
     mp.setattr(jagg, "weighted_average", _jitted_weighted_average)
+    mp.setattr(jclient, "adam_init", _adam_init_o0)
+    mp.setattr(jhfl, "adam_init", _adam_init_o0)
+    mp.setattr(jhfl, "make_masks", _make_masks_o0)
+    mp.setattr(jhfl, "compact", _compact_o0)
+
+
+# the reference's zero Adam state: eagerly each leaf shape compiles its
+# own zeros
+_adam_init_o0 = jax.jit(jadam_init, compiler_options=O0)
+
+
+def _make_masks_o0(scores, groups, ratio):
+    """The reference's ``make_masks`` as one program."""
+    return jax.jit(lambda s: jmake_masks(s, groups, ratio),
+                   compiler_options=O0)(scores)
+
+
+def _compact_o0(params, cfg, groups, masks):
+    """The reference's ``compact`` (``compact_params``, then
+    ``compact_config`` and the report) with the parameter gathers as one
+    program; the kept counts and indices, which set its shapes, come
+    from the masks as constants."""
+    masks = {k: np.asarray(v) for k, v in masks.items()}
+    kept = {}
+
+    def gather(p):
+        with jax.ensure_compile_time_eval():
+            new, counts = jcompact_params(p, groups, masks)
+        kept.update(counts)
+        return new
+
+    new = jax.jit(gather, compiler_options=O0)(params)
+    return new, jcompact_config(cfg, groups, kept), {
+        g.name: (kept[g.name], g.size) for g in groups}
 
 
 def _l2_scores_o0(params, groups, **kw):
@@ -288,7 +326,7 @@ def test_depth_lambdas_and_omega_match_jax(np_params):
     for k in jl:
         np.testing.assert_array_equal(tl[k], jl[k])
     want, jgrad = jax.jit(jax.value_and_grad(
-        lambda p: jomega(p, jg, jl)))(jp)
+        lambda p: jomega(p, jg, jl)), compiler_options=O0)(jp)
     leaves = tree_leaves(tp)
     for v in leaves:
         v.requires_grad_()
@@ -312,7 +350,7 @@ def test_compact_matches_jax(np_params):
     jp = _jtree(np_params)
     tp = params_from_jax(np_params, CPU)
     jg, tg = jbuild_groups(JCFG, jp), unet_groups(CFG, tp)
-    jm = jmake_masks(_l2_scores_o0(jp, jg, backend="xla"), jg, 0.44)
+    jm = _make_masks_o0(_l2_scores_o0(jp, jg, backend="xla"), jg, 0.44)
     tm = make_masks(l2_scores(tp, tg), tg, 0.44)
     for g in tg:
         k = int(tm[g.name].sum())
@@ -321,7 +359,7 @@ def test_compact_matches_jax(np_params):
         np.testing.assert_array_equal(
             keep_indices(tm[g.name], k).numpy(),
             np.asarray(jkeep_indices(jm[g.name], k)))
-    jnew, jcfg, jrep = jcompact(jp, JCFG, jg, jm)
+    jnew, jcfg, jrep = _compact_o0(jp, JCFG, jg, jm)
     tnew, tcfg, trep = compact(tp, CFG, tg, tm)
     assert trep == jrep and tcfg == CFG and jcfg == JCFG
     # slicing copies values: exact
@@ -331,10 +369,24 @@ def test_compact_matches_jax(np_params):
 
 
 def test_compact_config_raises_for_transformers():
-    from repro_torch.core.pruning import compact_config
-    cfg = CFG.replace(arch_type="decoder", name="lm")
-    with pytest.raises(NotImplementedError):
-        compact_config(cfg, [], {})
+    """A transformer's config takes its groups' kept counts (heads with
+    their q_per_kv query heads, d_ff, lru_width), ``-pruned`` appended,
+    and raises where the stacked and unstacked groups of one kind keep
+    different counts (the reference asserts it)."""
+    from repro_torch.core.pruning import PruneGroup, compact_config
+    cfg = CFG.replace(arch_type="decoder", name="lm", num_heads=8,
+                      num_kv_heads=2, d_ff=64, lru_width=32)
+    groups = [PruneGroup(name=n, size=s, members=(), stacked=st)
+              for n, s, st in (("cyc0/heads", 2, 3), ("cyc0/ffn", 64, 3),
+                               ("cyc1/lru", 32, 3), ("tail0/ffn", 64, 0))]
+    kept = {"cyc0/heads": 1, "cyc0/ffn": 40, "cyc1/lru": 16,
+            "tail0/ffn": 40}
+    assert compact_config(cfg, groups, kept) == cfg.replace(
+        name="lm-pruned", num_heads=4, num_kv_heads=1, d_ff=40,
+        lru_width=16)
+    assert compact_config(cfg, [], {}) == cfg
+    with pytest.raises(ValueError, match="non-uniform"):
+        compact_config(cfg, groups, {**kept, "tail0/ffn": 48})
 
 
 # ---------------------------------------------------------------------------
@@ -460,7 +512,7 @@ def test_local_step_with_omega_matches_jax(np_params, runs, monkeypatch,
         groups=unet_groups(tcfg, tp), lr=2e-4)
     b = _batch(7, B=8)
     key = jax.random.PRNGKey(0)
-    jp2, js, jloss = jstep(jp, jadam_init(jp), _jtree(b), key, {})
+    jp2, js, jloss = jstep(jp, _adam_init_o0(jp), _jtree(b), key, {})
     tp2, ts, tloss = tstep(tp, adam_init(tp), params_from_jax(b, CPU), None)
     assert abs(float(tloss) - float(jloss)) \
         <= STEP_LOSS_TOL[precision] * abs(float(jloss))
@@ -471,7 +523,7 @@ def test_local_step_with_omega_matches_jax(np_params, runs, monkeypatch,
             assert float(np.abs(gt[k] - gw[k]).max()) \
                 <= STEP_GRAD_TOL * scale, k
     else:
-        _, js32, _ = jstep32(jp, jadam_init(jp), _jtree(b), key, {})
+        _, js32, _ = jstep32(jp, _adam_init_o0(jp), _jtree(b), key, {})
         assert _rel_l2(gt, _flat(js32.mu)) <= BF16_GRAD_L2["vs_fp32"]
         assert _rel_l2(gt, gw) <= BF16_GRAD_L2["vs_bf16"]
     # params stay fp32 masters; one step moves each by at most ~lr
@@ -607,7 +659,13 @@ def _record_assignments(trainer):
 
 @pytest.fixture(scope="module")
 def runs(np_params):
-    with pytest.MonkeyPatch.context() as mp:
+    """The reference's and the port's FedPhD from the same params and
+    draws.  The port's run goes on a second thread while the reference
+    traces, compiles and runs its steps (both release the GIL in their
+    native code): the two share no state, and the monkeypatches hold
+    for both until both have ended."""
+    with pytest.MonkeyPatch.context() as mp, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
         mp.setattr(jmodel, "loss_fn", _jax_injected_loss)
         mp.setattr(tmodel, "loss_fn", _port_injected_loss)
         # both trainers start from np_params; the reference takes them
@@ -616,16 +674,17 @@ def runs(np_params):
         mp.setattr(jmodel, "init", lambda rng, cfg: _jtree(np_params))
         _fast_reference_jit(mp)
         mp.setattr(jhfl, "l2_scores", _l2_scores_o0)
+        port = FedPhD(CFG, FLConfig(**FL_KW), _clients(tdata, tclient),
+                      rng_seed=0, device="cpu", engine="sequential")
+        port.params = params_from_jax(np_params, CPU)
+        port_seen = _record_assignments(port)
+        port_run = pool.submit(port.run)
         ref = JFedPhD(JCFG, JFLConfig(**FL_KW), _clients(jdata, jclient),
                       rng_seed=0, engine="sequential")
         ref_step_sparse = ref.step_sparse
         ref_seen = _record_assignments(ref)
         ref_hist, _ = ref.run()
-        port = FedPhD(CFG, FLConfig(**FL_KW), _clients(tdata, tclient),
-                      rng_seed=0, device="cpu", engine="sequential")
-        port.params = params_from_jax(np_params, CPU)
-        port_seen = _record_assignments(port)
-        port_hist, _ = port.run()
+        port_hist, _ = port_run.result()
     return {"ref": ref, "port": port, "ref_step_sparse": ref_step_sparse,
             "ref_hist": ref_hist,
             "port_hist": port_hist, "ref_seen": ref_seen,

@@ -5,7 +5,7 @@
                                [faults] [quant] [quantmem] [obs] [sweep]
                                [lmtrain] [lmprofile] [lmgrad] [moe]
                                [moeprofile] [dense] [denseprofile] [rwkv]
-                               [rwkvprofile] [check]
+                               [rwkvprofile] [prune] [check]
 
 Builds the kernels, then runs the named phases of ``chip_smoke.py`` in
 the order given (default: all): ``memory`` is
@@ -35,7 +35,12 @@ its prefill against decode at depth 4 on the exact and the chunked
 route, its train step at 8 layers), ``rwkvprofile`` the same with one
 more prefill, 8 decode steps and one more train step under
 ``torch.profiler`` (tables in ``build/chip_phases/rwkv_*_profile.txt``),
-and ``check`` (last) holds every matmul, attention (in its dtype and the
+``prune`` is LM pruning on recurrentgemma-9b (the full bf16 model's
+``lm_prefill_phase`` for the dense median, then ``lm_prune_phase``:
+score, mask, compact and prefill the pruned model; then
+``lm_consistency_phase`` at depth 5 in fp32, whose pruning part holds
+masks against compaction and Omega's kernel route against the plain
+one), and ``check`` (last) holds every matmul, attention (in its dtype and the
 other), group-L2, scan and WKV (forward and backward) shape the phases
 before it launched against the plain versions (``check_matmul``,
 ``check_attention``, ``check_group_l2``, ``check_scan``,
@@ -60,7 +65,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PHASES = ("memory", "baselines", "centralized", "bf16", "faults", "quant",
           "quantmem", "obs", "sweep", "lmtrain", "lmprofile", "lmgrad",
           "moe", "moeprofile", "dense", "denseprofile", "rwkv",
-          "rwkvprofile", "check")
+          "rwkvprofile", "prune", "check")
 
 
 def main(argv) -> int:
@@ -154,6 +159,24 @@ def main(argv) -> int:
                         profile_dir=os.path.join(ROOT, "build", "chip_phases")
                         if phase.endswith("profile") else None).values():
                     cs.merge_tally(tally, t)
+            elif phase == "prune":
+                from repro_torch.configs import get_config
+                from repro_torch.models import model
+                cfg = get_config(cs.LM_ARCH)
+                gen = torch.Generator(dev)
+                gen.manual_seed(0)
+                params = model.init(cfg, gen, device=dev)
+                t, dense_s = cs.lm_prefill_phase(cfg, params, dev, counters,
+                                                 zero)
+                cs.merge_tally(tally, t)
+                cs.merge_tally(tally, cs.lm_prune_phase(
+                    cfg, params, dev, counters, zero, dense_s))
+                del params
+                torch.cuda.empty_cache()
+                cs.merge_tally(tally, cs.lm_consistency_phase(
+                    cfg.replace(num_layers=cs.LM_DEPTH, dtype="float32",
+                                param_dtype="float32"), dev, counters, zero))
+                torch.cuda.empty_cache()
             elif phase == "check" and tally:
                 mm, dx = tally.get("block_masked_matmul", {}), \
                     tally.get("block_masked_matmul_dx", {})
