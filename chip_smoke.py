@@ -368,8 +368,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
-PEAK_BYTES = 3.35e12
+# the H100's peak rates (FLOP/s by dtype, HBM bytes/s), the port's one
+# source of them
+from repro_torch.roofline.hw import PEAK_BYTES, PEAK_FLOPS  # noqa: E402
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}             # x max|plain|
 FORWARD_TOL = 1e-4                                    # x max|plain|
 # x the largest |plain| gradient of any leaf: the gradients of the
@@ -447,8 +448,9 @@ WKV_DECAYS = {"init": (-7.0, -4.0), "fast": (-0.1, 0.9),
               "underflow": (3.0, 5.0)}
 TRAIN_PATHS = ("train", "train_vectorized")     # the engines' first runs
 # the runs with a backward: the matmul's dx and group-L2's backward
-BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "experiment", "baselines",
-                                "faults", "quant", "sweep", "lm_consistency")
+BACKWARD_PATHS = TRAIN_PATHS + ("train_bf16", "mesh", "experiment",
+                                "baselines", "faults", "quant", "sweep",
+                                "lm_consistency")
 PATHS = tuple(dict.fromkeys(("dense", "pruned") + TRAIN_PATHS + LM_PATHS
                             + MOE_PATHS + DENSE_PATHS + RWKV_PATHS
                             + BACKWARD_PATHS[2:]))
@@ -474,6 +476,15 @@ TRAIN_PARAMS_BULK = (1e-5, 0.995)
 # group-L2 once a sparse step (2) plus the scores at R_s, backward 2
 VECTORIZED_LAUNCHES = {"block_masked_matmul": 1200, "flash_attention": 36,
                        "group_l2_norms": 3, "group_l2_norms_bwd": 2}
+# the mesh phase: the train cell's vectorized FedPhD on a one-rank NCCL
+# mesh (the world of one this card holds), in turns with the unsharded
+# engine: mesh, unsharded, mesh; and one MOON round a side
+MESH_AXES = {"data": 1, "model": 1}
+MESH_RUNS = (True, False, True)
+MESH_FLAT = "moon"
+# collectives a round: FedPhD reduces agg and gathers the losses; MOON
+# also gathers its trained rows
+MESH_COLLECTIVES = {"fedphd": (1, 1), "moon": (1, 2)}
 # the vectorized engine's peak memory at these client counts (20 is
 # FLConfig's default population at participation 1.0), until one fails
 MEMORY_CLIENTS = (4, 8, 10, 12, 16, 20)
@@ -3009,7 +3020,8 @@ def make_trainer(cfg, dev, engine, precision="fp32", **kw):
                   lr=TRAIN_LR, engine=engine, **kw)
 
 
-def train_run(cfg, dev, engine, counters, zero_counters, precision="fp32"):
+def train_run(cfg, dev, engine, counters, zero_counters, precision="fp32",
+              **kw):
     """One training run on ``engine``, the counters set to 0 just before
     it and read just after: the trainer, its history, its kernel tallies
     (kernel -> {shape key: launches}, with the matmul's dx launches under
@@ -3018,10 +3030,11 @@ def train_run(cfg, dev, engine, counters, zero_counters, precision="fp32"):
     round's local-training seconds (host clock, each ending in the
     round's loss syncs: the sequential engine's step_seconds summed over
     the round, the vectorized engine's round_seconds), the client steps
-    of each round and the peak device memory."""
+    of each round and the peak device memory.  ``kw`` goes to the
+    trainer (``mesh=``)."""
     import torch
 
-    trainer = make_trainer(cfg, dev, engine, precision)
+    trainer = make_trainer(cfg, dev, engine, precision, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
@@ -3128,6 +3141,8 @@ def train_phase(cfg, dev, counters, zero_counters):
                 if k in launches),
             f"train: per-shape tallies do not add up to {launches}")
     check_vectorized(seq, vec)
+    # the mesh phase holds its runs to this one, after its trainer is gone
+    vec["state"] = _host_state(vec["trainer"])
     for run in (seq, vec):
         del run["trainer"]
     return {"train": tally, "train_vectorized": vec["tally"]}, runs
@@ -3511,6 +3526,146 @@ def check_vectorized(seq, vec):
                 if k in launches),
             f"train vectorized: per-shape tallies do not add up to "
             f"{launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: FedPhD's hierarchy on a device mesh
+# ---------------------------------------------------------------------------
+
+def mesh_flat_round(spec, dev, counters, zero_counters):
+    """One round of the flat ``spec`` through ``Experiment`` (its mesh,
+    if any, from ``spec.mesh``), the counters and the collectives set to
+    0 just before it: the history, the method state, kernel tallies,
+    collectives and the round's local seconds."""
+    import torch
+    from repro_torch.experiment.run import Experiment
+    from repro_torch.launch import federated
+
+    exp = Experiment(spec, device=dev)
+    torch.cuda.synchronize()
+    zero_counters()
+    federated.reset_collectives()
+    exp.run(1)
+    torch.cuda.synchronize()
+    return dict(hist=[h.to_dict() for h in exp.history],
+                state=method_state(exp.trainer), tally=tally_of(counters),
+                collectives=dict(federated.COLLECTIVES),
+                mesh=type(exp.trainer.mesh).__name__,
+                local_s=list(exp.trainer.round_seconds))
+
+
+def mesh_phase(cfg, dev, counters, zero_counters, vec):
+    """The ``train`` cell's vectorized FedPhD on a mesh of MESH_AXES: a
+    world of one rank on a real NCCL communicator, started in-process by
+    ``make_spec_mesh``.  MESH_RUNS in turns (mesh, unsharded, mesh),
+    each through :func:`make_trainer`, each held bitwise to ``vec`` (the
+    train phase's first vectorized run): history and final params, and
+    kernel tallies launch for launch.  With one rank the partial (E, C)
+    contraction is the whole one and the all-reduce a copy, so nothing
+    may differ.  The collectives are counted (MESH_COLLECTIVES a round),
+    a further round of the last mesh run is probed for host syncs (none
+    allowed, OBS_SYNCS_ALLOWED), and one MOON round on the mesh (through
+    ``ExperimentSpec.mesh``) is held bitwise to the unsharded one.  The
+    process group is destroyed at the end, so later phases (the sweep's
+    spawned workers) run as before.  Returns the first mesh run's
+    tallies."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import federated
+    from repro_torch.launch.mesh import (destroy_world, make_spec_mesh,
+                                         mesh_axis_sizes)
+
+    require(not dist.is_initialized(),
+            "mesh: a process group exists before the mesh phase")
+    t0 = time.perf_counter()
+    mesh = make_spec_mesh(MESH_AXES)
+    init_s = time.perf_counter() - t0
+    try:
+        backend = dist.get_backend()
+        runs = []
+        for sharded in MESH_RUNS:
+            federated.reset_collectives()
+            run = train_run(cfg, dev, "vectorized", counters, zero_counters,
+                            mesh=mesh if sharded else None)
+            run["collectives"] = dict(federated.COLLECTIVES)
+            run["state"] = _host_state(run["trainer"])
+            run["sharded"] = sharded
+            runs.append(run)
+        # one more (plain) round of the last mesh run, its dispatch
+        # probed for host syncs; it must not change the collectives' count
+        trainer = runs[-1]["trainer"]
+        syncs, n_syncs, control = sync_probe(trainer, 4)
+        for run in runs:
+            del run["trainer"]
+        del trainer
+        register_baseline_data()
+        flat_spec = dataclasses.replace(
+            baseline_spec(MESH_FLAT, "vectorized"),
+            fl=dataclasses.replace(baseline_spec(MESH_FLAT, "vectorized").fl,
+                                   rounds=1))
+        flat = {kind: mesh_flat_round(
+            flat_spec.replace(mesh=dict(MESH_AXES) if kind == "mesh"
+                              else None), dev, counters, zero_counters)
+            for kind in ("mesh", "unsharded")}
+        torch.cuda.empty_cache()
+    finally:
+        destroy_world()
+    rounds = len(vec["hist"])
+    per_round = MESH_COLLECTIVES["fedphd"]
+    for i, run in enumerate(runs):
+        same = _same_state(run["state"], vec["state"])
+        c = run["collectives"]
+        emit("mesh", run=i + 1, sharded=run["sharded"], backend=backend,
+             axes=mesh_axis_sizes(mesh), bitwise_equal=same,
+             tallies_equal=run["tally"] == vec["tally"],
+             round_s=run["round_s"], unsharded_first_round_s=vec["round_s"],
+             wall_s=run["wall"], peak_mem_bytes=run["peak"],
+             collectives=c, launches=run["launches"])
+        require(same, f"mesh run {i + 1} (sharded={run['sharded']}): the "
+                      f"history or final params differ from the unsharded "
+                      f"vectorized run")
+        require(run["tally"] == vec["tally"],
+                f"mesh run {i + 1}: kernel tallies differ from the "
+                f"unsharded run's")
+        want = (per_round[0] * rounds, per_round[1] * rounds) \
+            if run["sharded"] else (0, 0)
+        require((c["all_reduce"], c["all_gather"]) == want,
+                f"mesh run {i + 1}: collectives {c}, want (all_reduce, "
+                f"all_gather) = {want}")
+    flat_same = (flat["mesh"]["hist"] == flat["unsharded"]["hist"]
+                 and all(len(a) == len(b) and all(
+                     torch.equal(x, y) for x, y in zip(a, b))
+                     for a, b in zip(flat["mesh"]["state"].values(),
+                                     flat["unsharded"]["state"].values()))
+                 and flat["mesh"]["state"].keys()
+                 == flat["unsharded"]["state"].keys())
+    fc = flat["mesh"]["collectives"]
+    emit("mesh", run=MESH_FLAT, backend=backend, bitwise_equal=flat_same,
+         tallies_equal=flat["mesh"]["tally"] == flat["unsharded"]["tally"],
+         trainer_mesh=flat["mesh"]["mesh"],
+         round_s=flat["mesh"]["local_s"],
+         unsharded_round_s=flat["unsharded"]["local_s"], collectives=fc,
+         unsharded_collectives=flat["unsharded"]["collectives"])
+    emit("mesh", run="summary", backend=backend, world=1, init_s=init_s,
+         sync_sites=syncs, syncs=n_syncs, sync_control=control,
+         mesh_round_s=[r["round_s"] for r in runs if r["sharded"]],
+         unsharded_round_s=[r["round_s"] for r in runs
+                            if not r["sharded"]],
+         process_group_left=dist.is_initialized())
+    require(backend == "nccl", f"mesh: backend {backend!r}, want nccl")
+    require(control > 0 and set(syncs) <= set(OBS_SYNCS_ALLOWED),
+            f"mesh: a steady mesh round syncs the host at {syncs} "
+            f"(control caught {control})")
+    require(flat_same and flat["mesh"]["tally"] == flat["unsharded"]["tally"]
+            and flat["mesh"]["mesh"] == "DeviceMesh",
+            f"mesh: the {MESH_FLAT} round on the mesh differs from the "
+            f"unsharded one")
+    require((fc["all_reduce"], fc["all_gather"])
+            == MESH_COLLECTIVES[MESH_FLAT],
+            f"mesh: {MESH_FLAT} collectives {fc}, want "
+            f"{MESH_COLLECTIVES[MESH_FLAT]}")
+    require(not dist.is_initialized(), "mesh: the process group is left")
+    return runs[0]["tally"]
 
 
 # ---------------------------------------------------------------------------
@@ -5207,6 +5362,9 @@ def run(out_dir: str, profile: bool = False) -> dict:
     tallies.update(train_tallies)
     tallies["train_bf16"] = train_bf16_phase(
         cfg, dev, counters, zero_counters, train_runs["vectorized"][0])
+    # -- 4a. the same cell on a one-rank NCCL mesh, and a MOON round ----
+    tallies["mesh"] = mesh_phase(cfg, dev, counters, zero_counters,
+                                 train_runs["vectorized"][0])
 
     # -- 5-7. RecurrentGemma serving: full model, then depth 5 in fp32 -------
     from repro_torch.configs import get_config

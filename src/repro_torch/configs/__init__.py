@@ -10,7 +10,7 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, DECODE_32K,
                                       INPUT_SHAPES, LONG_500K, PREFILL_32K,
                                       RECURRENT, RWKV, TRAIN_4K, FLConfig,
                                       InputShape, MLAConfig, ModelConfig,
-                                      MoEConfig)
+                                      MoEConfig, ShardingRules)
 from repro_torch.configs.command_r_35b import CONFIG as _command_r
 from repro_torch.configs.ddpm_unet import CELEBA_UNET, CIFAR10_UNET, SMOKE_UNET
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3
@@ -142,9 +142,35 @@ def smoke_variant(name: str) -> ModelConfig:
     )
 
 
+# ---------------------------------------------------------------------------
+# per-arch sharding rules (the reference's ``sharding_rules``)
+# ---------------------------------------------------------------------------
+# the configs whose optimizer state also shards over "pod" (ZeRO-1 over
+# both data-parallel tiers)
+_BIG = {"internvl2-76b", "deepseek-v3-671b", "qwen3-moe-235b-a22b",
+        "command-r-35b", "internlm2-20b", "recurrentgemma-9b"}
+
+
+def sharding_rules(cfg: ModelConfig) -> ShardingRules:
+    """The mesh layout rules of ``cfg``; a smoke variant or a
+    ``+swa4096`` adaptation takes its base config's."""
+    base_name = cfg.name.replace("-smoke", "").replace("+swa4096", "")
+    fsdp = ("data", "pod") if base_name in _BIG else ("data",)
+    return ShardingRules(
+        batch=("pod", "data"),
+        heads=("model",),
+        ffn=("model",),
+        experts=("model",),
+        vocab=("model",),
+        fsdp_axes=fsdp,
+        shard_kv_cache_seq=False,
+    )
+
+
 __all__ = ["ARCHS", "ALL_CONFIGS", "ATTN_GLOBAL", "ATTN_LOCAL",
            "CELEBA_UNET", "CIFAR10_UNET", "DECODE_32K", "INPUT_SHAPES",
            "LONG_500K", "PREFILL_32K", "RECURRENT", "RWKV", "SMOKE_UNET",
            "TRAIN_4K", "UNETS", "FLConfig", "InputShape", "MLAConfig",
-           "ModelConfig", "MoEConfig", "adapt_for_shape", "get_config",
-           "get_shape", "list_archs", "register_config", "smoke_variant"]
+           "ModelConfig", "MoEConfig", "ShardingRules", "adapt_for_shape",
+           "get_config", "get_shape", "list_archs", "register_config",
+           "sharding_rules", "smoke_variant"]

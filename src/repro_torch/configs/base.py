@@ -140,6 +140,25 @@ INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
                                     LONG_500K)}
 
 
+@dataclass(frozen=True)
+class ShardingRules:
+    """Logical-axis -> mesh-axis mapping for one model
+    (:mod:`repro_torch.launch.sharding`).
+
+    Each entry is a tuple of mesh axis names per logical axis.
+    ``fsdp_axes`` lists the mesh axes the optimizer state is further
+    sharded over on its largest free dimension (ZeRO-1)."""
+    batch: Tuple[str, ...] = ("pod", "data")
+    heads: Tuple[str, ...] = ("model",)
+    ffn: Tuple[str, ...] = ("model",)
+    experts: Tuple[str, ...] = ("model",)
+    vocab: Tuple[str, ...] = ("model",)
+    fsdp_axes: Tuple[str, ...] = ("data",)
+    shard_kv_cache_seq: bool = False     # shard the KV cache along sequence
+    moe_ep: bool = False                 # expert parallelism: experts over
+                                         # the EP axes, d_expert unsharded
+
+
 _MODEL_TUPLE_FIELDS = ("layer_pattern", "channel_mults", "attn_resolutions")
 
 

@@ -26,15 +26,26 @@ def normalize_weights(weights: Sequence[float]) -> np.ndarray:
     return w / total
 
 
+def contract_leaf(stacked: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The fp32 contraction of the leading member axis of one stacked
+    leaf with ``w`` ((N,) or (G, N))."""
+    eq = "gn,n...->g..." if w.dim() == 2 else "n,n...->..."
+    return torch.einsum(eq, w.float(), stacked.float())
+
+
+def cast_like(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An fp32 sum cast back to a leaf's dtype; integer leaves (an Adam
+    step) are rounded, not truncated.  On a mesh the rounding comes
+    after the sum over ranks, never on each rank's partial sum."""
+    if not dtype.is_floating_point:
+        return torch.round(acc).to(dtype)
+    return acc.to(dtype)
+
+
 def combine_leaf(stacked: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Contract the leading member axis of one stacked leaf with ``w``
-    ((N,) or (G, N)) in fp32, then cast back; integer leaves (an Adam
-    step) are rounded, not truncated."""
-    eq = "gn,n...->g..." if w.dim() == 2 else "n,n...->..."
-    acc = torch.einsum(eq, w.float(), stacked.float())
-    if not stacked.dtype.is_floating_point:
-        return torch.round(acc).to(stacked.dtype)
-    return acc.to(stacked.dtype)
+    ((N,) or (G, N)) in fp32, then cast back (:func:`cast_like`)."""
+    return cast_like(contract_leaf(stacked, w), stacked.dtype)
 
 
 def weighted_average_stacked(stacked_tree, weights):

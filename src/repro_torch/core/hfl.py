@@ -53,7 +53,15 @@ the packages both ways; the port adds the generator's state
 (``torch_rng``), the one stream that cannot cross.  A resumed run is
 bitwise equal to an unbroken one on the CPU.
 
-Not ported yet, and refused: meshes (ROADMAP A.13).
+``mesh=`` (a ``DeviceMesh``, :mod:`repro_torch.launch.mesh`) shards the
+vectorized round's clients over the mesh's "data" axis, one process
+a device: every rank runs this same trainer from the same seeds, so the
+host streams agree without a message; each uploads and trains only its
+block of the round's clients, and the engine sums the partial
+aggregates and gathers the per-client rows over the axis
+(:mod:`repro_torch.fl.engine`), so every rank ends each round with the
+unsharded trainer's state.  The sequential engine ignores the mesh, as
+the reference's does.
 """
 from __future__ import annotations
 
@@ -90,6 +98,7 @@ from repro_torch.fl.faults import (FaultSpec, edge_weight_rows, late_delta,
                                    late_shares, make_fault_model,
                                    merge_late)
 from repro_torch.fl.record import RoundRecord, RunResult, evals_of
+from repro_torch.launch.federated import shard_clients
 from repro_torch.models import model
 from repro_torch.obs.compile_tracker import tracker_for
 from repro_torch.obs.trace import NULL_TRACER
@@ -174,8 +183,10 @@ class FedPhD:
     fault: a :class:`repro_torch.fl.faults.FaultSpec`; a disabled one is
     None.  quant: the uplink's dtype, "none", "int8" or "fp8".
     tracer: a :class:`repro_torch.obs.Tracer` (or :meth:`bind_tracer`
-    later); None records nothing.  mesh: the reference's; anything but
-    None raises NotImplementedError (ROADMAP A.13).
+    later); None records nothing.  mesh: a ``DeviceMesh`` whose "data"
+    axis shards the vectorized round's clients (the
+    module docstring); the trainer then runs on this rank's device of
+    the mesh, whose type must be ``device``'s.
     """
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, clients: List[Client],
@@ -183,16 +194,14 @@ class FedPhD:
                  aggregation: str = "sh", prune: bool = True,
                  lr: float = 2e-4, engine: Optional[str] = None,
                  persistent_opt: bool = False, state_store: str = "auto",
-                 mesh=None, eval_fn: Optional[Callable] = None,
+                 mesh=None,
+                 eval_fn: Optional[Callable] = None,
                  eval_every: int = 0, fault: Optional[FaultSpec] = None,
                  quant: str = "none", tracer=None, device="cuda"):
         # NULL_TRACER (the default) makes every span, event and counter
         # a no-op; tracing never draws, reads the device or syncs
         self._obs = NULL_TRACER
         self._obs_compile = None
-        if mesh is not None:
-            raise NotImplementedError("FedPhD(mesh=...): the mesh-sharded "
-                                      "client axis is ROADMAP A.13")
         if quant not in QUANTS:
             raise ValueError(f"unknown quant {quant!r}; expected one of "
                              f"{QUANTS}")
@@ -201,7 +210,8 @@ class FedPhD:
         if aggregation not in AGGREGATIONS:
             raise ValueError(f"aggregation {aggregation!r} not in "
                              f"{AGGREGATIONS}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
+        self.mesh = mesh
         self.cfg = cfg.replace(precision=resolve_precision(cfg.precision))
         self.quant = quant
         self.fl = fl
@@ -284,7 +294,7 @@ class FedPhD:
         self.step_plain = make_local_step(self.cfg, self.fl, sparse=False,
                                           lr=self.lr)
         kw = dict(lr=self.lr, stored=self._stored_copies(),
-                  quant=self.quant)
+                  quant=self.quant, mesh=self.mesh)
         self._engine_sparse = make_round_engine(
             self.cfg, self.fl, sparse=True, groups=self.groups,
             **kw) if sparse else None
@@ -455,13 +465,19 @@ class FedPhD:
             cid_of = np.asarray([cid for _, cid in order])
             if faults is not None:
                 valid = faults.truncate(valid, cid_of)
+        # on a mesh, this rank's clients' rows alone go up: every
+        # client-leading input of the engine is cut to them
+        mine = lambda t: shard_clients(t, self.mesh)
         self._t_local = time.perf_counter()
         with obs.span("round/h2d", round=r):
             batches = {k: host_to_device(v, self.device)
-                       for k, v in batches.items()}
-            # the DDPM draws, client after client, in the sequential order
-            draws = draw_round(self.gen, valid, batches["images"].shape[2:],
-                               self.cfg.diffusion_steps, self.device)
+                       for k, v in mine(batches).items()}
+            # the DDPM draws, client after client, in the sequential
+            # order; every rank draws all of them, so its stream stays in
+            # step
+            draws = mine(draw_round(self.gen, valid,
+                                    batches["images"].shape[2:],
+                                    self.cfg.diffusion_steps, self.device))
             edge_models = self._edge_models or {}
             edge_stack = stack_trees([edge_models.get(e, self.params)
                                       for e in range(fl.num_edges)])
@@ -486,10 +502,11 @@ class FedPhD:
                                          reporting, late, weights)
         engine = self._engine_sparse if sparse_round else self._engine_plain
         with obs.span("round/dispatch", round=r):
-            out = engine(edge_stack, edge_idx, batches, valid, draws, w_mat,
-                         opt_states=self._opt_rows(cid_of)
+            out = engine(edge_stack, mine(edge_idx), batches, mine(valid),
+                         draws, w_mat,
+                         opt_states=self._opt_rows(mine(cid_of))
                          if self.persistent_opt else None, w_late=w_late,
-                         err=self._err_rows(cid_of)
+                         err=self._err_rows(mine(cid_of))
                          if self.quant != "none" else None)
         if self.persistent_opt:
             # only completed clients keep their moments

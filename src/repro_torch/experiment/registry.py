@@ -89,6 +89,15 @@ def make_trainer(spec: ExperimentSpec, cfg: ModelConfig, clients,
     return trainer
 
 
+def _spec_mesh(spec: ExperimentSpec, device):
+    """``spec.mesh`` ({axis -> size} or None) as a live ``DeviceMesh`` on
+    ``device``'s type (:func:`repro_torch.launch.mesh.make_spec_mesh`)."""
+    if not spec.mesh:
+        return None
+    from repro_torch.launch.mesh import make_spec_mesh   # starts a world
+    return make_spec_mesh(spec.mesh, device=device)
+
+
 # ---------------------------------------------------------------------------
 # built-in methods
 # ---------------------------------------------------------------------------
@@ -106,7 +115,8 @@ def _fedphd_factory(prune_mode: str = "",
                       prune=spec.prune,
                       lr=spec.lr, engine=spec.engine,
                       persistent_opt=spec.persistent_opt,
-                      state_store=spec.state_store, mesh=spec.mesh,
+                      state_store=spec.state_store,
+                      mesh=_spec_mesh(spec, device),
                       eval_fn=eval_fn, eval_every=spec.eval_every,
                       fault=spec.fault, quant=spec.comm.quant,
                       device=device)
@@ -127,7 +137,8 @@ def _flat_factory(method: str, aggregation: str = "fedavg") -> TrainerFactory:
         return FlatTrainer(method, cfg, spec.fl, clients, lr=spec.lr,
                            rng_seed=spec.seed, engine=spec.engine,
                            persistent_opt=spec.persistent_opt,
-                           state_store=spec.state_store, mesh=spec.mesh,
+                           state_store=spec.state_store,
+                           mesh=_spec_mesh(spec, device),
                            eval_fn=eval_fn, eval_every=spec.eval_every,
                            aggregation=aggregation, fault=spec.fault,
                            quant=spec.comm.quant, device=device)

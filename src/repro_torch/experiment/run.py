@@ -12,6 +12,12 @@ checkpoint and the reverse; the generator's state (``torch_rng``) is
 the port's own.  ``spec.obs`` enabled (or ``$FEDPHD_OBS``) traces the
 run to ``obs.trace`` or, by default, ``<ckpt>.trace.jsonl``; a resumed
 run appends to the same file behind a new ``meta`` line.
+
+On a world of several ranks (a spec with a ``mesh``, one process a
+device) every rank runs the experiment and holds the same trainer
+state, so rank 0 alone writes the checkpoint and the trace
+(:func:`repro_torch.launch.mesh.is_writer`); every rank reads the
+checkpoint on resume.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ from repro_torch.experiment.registry import make_trainer
 from repro_torch.experiment.spec import ExperimentSpec
 from repro_torch.fl.client import Client
 from repro_torch.fl.record import RoundRecord
-from repro_torch.obs.trace import make_tracer
+from repro_torch.launch.mesh import is_writer
+from repro_torch.obs.trace import NULL_TRACER, make_tracer
 
 CKPT_FORMAT = 1
 
@@ -53,7 +60,8 @@ class Experiment:
         if clients is None:
             clients, self.images, self.labels = make_clients(spec)
         self.clients = clients
-        self.tracer = make_tracer(spec.obs, default_path=trace_path)
+        self.tracer = make_tracer(spec.obs, default_path=trace_path) \
+            if is_writer() else NULL_TRACER
         self.trainer = make_trainer(spec, self.model_cfg, clients, eval_fn,
                                     tracer=self.tracer, device=device)
 
@@ -95,7 +103,9 @@ class Experiment:
     # -- checkpointing -------------------------------------------------------
     def save(self, path: str) -> None:
         """One checkpoint (npz + manifest): the trainer's arrays and
-        streams, its history and the spec."""
+        streams, its history and the spec; written by rank 0 alone."""
+        if not is_writer():
+            return
         arrays, meta = self.trainer.state()
         meta = {**meta, "spec": self.spec.to_dict(), "format": CKPT_FORMAT}
         checkpoint.save(path, arrays, metadata=meta)

@@ -28,6 +28,11 @@ command resumes; ``--max-runs N`` stops after N run attempts::
 ``--executor process`` runs one worker on a CUDA device; ``--executor
 k8s --k8s-fake`` drives the k8s executor against the in-memory
 ``FakeCluster``.
+
+A spec with a ``mesh`` runs one process a device, every rank the same
+command (``torchrun --nproc-per-node N -m
+repro_torch.experiment.runner --spec mesh.json ...``); rank 0 alone
+writes ``--out`` and prints.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from repro_torch.experiment.run import Experiment, checkpoint_exists, run_spec
 from repro_torch.experiment.spec import DataSpec, ExperimentSpec
 from repro_torch.experiment.sweep import (EXECUTORS, SweepResult, SweepSpec,
                                           manifest_status, run_sweep)
+from repro_torch.launch.mesh import is_writer
 from repro_torch.obs.metrics import summarize_trace
 
 PRESETS = {
@@ -284,6 +290,8 @@ def main(argv: Optional[Sequence[str]] = None
                        save_every=args.save_every, eval_fn=_default_eval,
                        device=args.device)
 
+    if not is_writer():         # rank 0 alone writes and reports
+        return exp
     with open(os.path.join(args.out, "spec.json"), "w") as f:
         f.write(exp.spec.to_json() + "\n")
     with open(os.path.join(args.out, "history.json"), "w") as f:

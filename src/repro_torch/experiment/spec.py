@@ -62,7 +62,11 @@ class ExperimentSpec:
     precision: Optional[str] = None
     persistent_opt: bool = False
     state_store: str = "auto"       # auto | device | host
-    mesh: Optional[dict] = None     # {axis: size}; ROADMAP A.13
+    mesh: Optional[dict] = None     # {axis name -> size}, e.g.
+                                    # {"data": 4, "model": 1}: the clients
+                                    # shard over "data", one rank a device
+                                    # (repro_torch.launch.mesh.
+                                    # make_spec_mesh); None = unsharded
     lr: float = 2e-4
     eval_every: int = 0             # 0: never call the eval hook
     seed: int = 0

@@ -45,7 +45,10 @@ double-buffers them, as :class:`repro_torch.core.hfl.FedPhD` does: the
 vectorized round's (C,) losses stay on the device until the round is
 finished, and ``tracer=`` records the same phase spans.
 
-Not ported yet, and refused: meshes (ROADMAP A.13).
+``mesh=`` shards the vectorized round's clients over a ``DeviceMesh``
+axis as FedPhD's does (:mod:`repro_torch.core.hfl`): each rank uploads
+and trains its block of the round's clients, and the engine returns the
+unsharded round's outputs on every rank.
 """
 from __future__ import annotations
 
@@ -60,8 +63,7 @@ import torch
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core.aggregation import (aggregate_fedavg, fedavg_weights,
-                                          uniform_weights, weighted_average,
-                                          weighted_average_stacked)
+                                          uniform_weights, weighted_average)
 from repro_torch.core.hfl import prng_key, run_pipelined, sync_losses
 from repro_torch.data.pipeline import stack_round
 from repro_torch.device import host_to_device, resolve_device
@@ -76,6 +78,7 @@ from repro_torch.fl.faults import (FaultSpec, edge_weight_rows, late_delta,
                                    late_shares, make_fault_model,
                                    merge_late)
 from repro_torch.fl.record import RoundRecord, RunResult, evals_of
+from repro_torch.launch.federated import shard_clients
 from repro_torch.models import model
 from repro_torch.obs.compile_tracker import tracker_for
 from repro_torch.obs.trace import NULL_TRACER
@@ -154,15 +157,16 @@ class FlatTrainer:
     lives, "device", "host" or "auto".  eval_fn/eval_every, fault and
     quant: as FedPhD's.  aggregation: "fedavg", or "staleness" for
     FedAvg.  tracer: a :class:`repro_torch.obs.Tracer`, as FedPhD's.
-    mesh: the reference's; anything but None raises NotImplementedError
-    (ROADMAP A.13).
+    mesh: a ``DeviceMesh`` whose "data" axis shards the vectorized
+    round's clients, as FedPhD's.
     """
 
     def __init__(self, method: str, cfg: ModelConfig, fl: FLConfig,
                  clients: List[Client], *, lr: float = 2e-4,
                  rng_seed: int = 0, engine: Optional[str] = None,
                  persistent_opt: bool = False, state_store: str = "auto",
-                 mesh=None, eval_fn: Optional[Callable] = None,
+                 mesh=None,
+                 eval_fn: Optional[Callable] = None,
                  eval_every: int = 0,
                  aggregation: str = "fedavg",
                  fault: Optional[FaultSpec] = None,
@@ -177,10 +181,6 @@ class FlatTrainer:
         if aggregation == "staleness" and method != "fedavg":
             raise ValueError("staleness aggregation is a FedAvg variant "
                              f"(got method={method!r})")
-        if mesh is not None:
-            raise NotImplementedError("FlatTrainer(mesh=...): the "
-                                      "mesh-sharded client axis is "
-                                      "ROADMAP A.13")
         # NULL_TRACER (the default): every span and event is a no-op
         self._obs = NULL_TRACER
         self._obs_compile = None
@@ -189,7 +189,8 @@ class FlatTrainer:
         # deltas merged a round later; with no stragglers, FedAvg
         self.aggregation = aggregation
         self.quant = quant
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
+        self.mesh = mesh
         self.cfg = cfg = cfg.replace(
             precision=resolve_precision(cfg.precision))
         self.fl = fl
@@ -245,7 +246,7 @@ class FlatTrainer:
         self.history: List[RoundRecord] = []
         self._round_engine = eng.make_round_engine(
             cfg, fl, method=method, lr=lr, stored=self._stored_copies(),
-            quant=quant)
+            quant=quant, mesh=mesh)
         if tracer is not None:
             self.bind_tracer(tracer)
 
@@ -394,14 +395,19 @@ class FlatTrainer:
                                          fl.local_epochs)
             if faults is not None:
                 valid = faults.truncate(valid, sel)
+        # on a mesh, this rank's clients' rows alone go up: every
+        # client-leading input of the engine is cut to them (every rank
+        # draws all of the round's t and eps, so its stream stays in
+        # step)
+        mine = lambda t: shard_clients(t, self.mesh)
         self._t_local = time.perf_counter()
         with obs.span("round/h2d", round=r):
             batches = {k: host_to_device(v, self.device)
-                       for k, v in batches.items()}
-            draws = eng.draw_round(self.gen, valid,
-                                   batches["images"].shape[2:],
-                                   cfg.diffusion_steps, self.device,
-                                   features=method == "moon")
+                       for k, v in mine(batches).items()}
+            draws = mine(eng.draw_round(self.gen, valid,
+                                        batches["images"].shape[2:],
+                                        cfg.diffusion_steps, self.device,
+                                        features=method == "moon"))
         # the flat round is the E = 1 case of the edge engine; the one
         # edge model is a view of the global model
         server = tree_map(lambda leaf: leaf[None], params)
@@ -410,37 +416,38 @@ class FlatTrainer:
             np.zeros(len(sel), np.int64), 1, counts, rep, late,
             lambda mask: fedavg_weights(counts[mask]))
         shared_g, local_g = _split_shared(params, cfg)
-        seen = self._seen[sel_arr]
+        my_sel = mine(sel_arr)
+        seen = mine(self._seen[sel_arr])
         ctx = None
         if method in ("fedprox", "moon"):
             ctx = {"global_params": params}
         if method == "moon":
             ctx["prev_params"] = _rows_or_default(
-                self._rows(self._prev_stack, sel_arr), params, seen)
+                self._rows(self._prev_stack, my_sel), params, seen)
         if method == "feddiffuse":
             ctx = {"local_params": _rows_or_default(
-                self._rows(self._local_stack, sel_arr), local_g, seen)}
+                self._rows(self._local_stack, my_sel), local_g, seen)}
         if method == "scaffold":
             steps = faults.budget.astype(np.float64) if faults is not None \
                 else np.asarray([fl.local_epochs * cl.data.steps_per_epoch
                                  for cl in sel_clients], np.float64)
             scale = 1.0 / (np.maximum(steps, 1) * self.lr)
-            ctx = {"c_local": self._rows(self._c_local_stack, sel_arr),
-                   "c_global": self.c_global,
-                   "scale": host_to_device(scale.astype(np.float32),
-                                           self.device)}
+            # the mean change: uniform over the round's clients, or
+            # under faults over the completed ones
+            dc_w = comp / max(int(comp.sum()), 1)
+            ctx = {"c_local": self._rows(self._c_local_stack, my_sel),
+                   "c_global": self.c_global}
+            ctx.update({k: host_to_device(mine(v).astype(np.float32),
+                                          self.device)
+                        for k, v in (("scale", scale), ("dc_w", dc_w))})
         with obs.span("round/dispatch", round=r):
             out = self._round_engine(
-                server, np.zeros(len(sel), np.int64), batches, valid, draws,
-                w_row, ctx=ctx,
-                opt_states=self._rows(self._opt_stack, sel_arr)
+                server, mine(np.zeros(len(sel), np.int64)), batches,
+                mine(valid), draws, w_row, ctx=ctx,
+                opt_states=self._rows(self._opt_stack, my_sel)
                 if self.persistent_opt else None, w_late=w_late,
-                err=self._rows(self._err_stack, sel_arr)
+                err=self._rows(self._err_stack, my_sel)
                 if self.quant != "none" else None)
-        # under faults SCAFFOLD's mean change is taken over the completed
-        # clients, which needs their old rows
-        c_local = ctx["c_local"] if method == "scaffold" \
-            and faults is not None else None
         del ctx
         # a zero weight row makes the aggregate zeros: keep the model
         agg = tree_map(lambda leaf: leaf[0], out["agg"]) if rep.any() \
@@ -472,17 +479,9 @@ class FlatTrainer:
         if method == "scaffold" and comp.any():
             eng.scatter_rows(self._c_local_stack, sel_arr, out["c_new"],
                              comp)
-            if faults is None:
-                mean_dc = out["dc_mean"]
-            else:
-                # the engine's mean is over every client: take it over
-                # the completed ones
-                dc = tree_map(lambda a, b: a - b, out["c_new"], c_local)
-                mean_dc = weighted_average_stacked(
-                    dc, comp.astype(np.float64) / comp.sum())
             frac = int(comp.sum()) / len(self.clients)
             self.c_global = tree_map(lambda c, d: c + frac * d,
-                                     self.c_global, mean_dc)
+                                     self.c_global, out["dc_mean"])
         # no sync: the losses stay on the device until _finish_round
         return out["losses"]
 

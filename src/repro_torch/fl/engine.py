@@ -24,7 +24,8 @@ kernels are ctypes launches, which ``torch.func.vmap`` cannot batch):
                 variates, FedDiffuse's local (never sent) decoder rows
     edge agg -> the fused (E, C) weight-matrix contraction per leaf (the
                 flat baselines are the E = 1 case)
-    scaffold -> the c_i+ rows and the uniform mean of their change
+    scaffold -> the c_i+ rows and the ``dc_w``-weighted mean of their
+                change
 
 A round's clients train in consecutive chunks of at most k clients
 (:func:`client_chunk`: k from the config, the batch shape, the precision
@@ -47,6 +48,22 @@ Per-client Adam state can persist across rounds: a stacked (N, ...)
 state (:func:`stacked_adam_init`) is gathered by the round's
 participants (:func:`tree_gather`), passed in, and the engine's updated
 rows are scattered back (:func:`tree_scatter`).
+
+On a device mesh (``mesh=``, one process a device,
+:mod:`repro_torch.launch.mesh`) whose client axis
+(:data:`repro_torch.launch.federated.CLIENT_AXIS`) of size n divides the
+round's C, rank r trains only the clients [r C/n, (r+1) C/n): the
+trainer cuts its client-leading inputs with
+:func:`repro_torch.launch.federated.shard_clients`, so only its rows
+are uploaded.  Its partial sums (the (E, C) contraction of its
+rows, the late deltas, SCAFFOLD's mean change) are summed over the
+axis's group, one bucketed all-reduce an output, and its per-client
+rows (losses, and the trained models, Adam rows, error-feedback rows
+and c_i+ the caller keeps) are gathered into the (C, ...) stack, one
+all-gather an output.  So the caller sees what the unsharded engine
+returns, within the summation order (integer leaves are rounded after
+the all-reduce).  A C the axis does not divide trains every client on
+every rank, with one warning a process, and runs no collective.
 """
 from __future__ import annotations
 
@@ -57,12 +74,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig
-from repro_torch.core.aggregation import (combine_leaf,
+from repro_torch.core.aggregation import (cast_like, combine_leaf,
+                                          contract_leaf,
                                           weighted_average_stacked)
 from repro_torch.device import host_to_device
 from repro_torch.fl.client import (make_loss_fn, scaffold_correction,
                                    scaffold_update)
 from repro_torch.fl.compress import ef_roundtrip_stacked
+from repro_torch.launch.federated import (CLIENT_AXIS, client_rows,
+                                          gather_rows, reduce_tree,
+                                          require_client_axis)
 from repro_torch.optim import AdamState, adam_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -75,7 +96,7 @@ CTX_AXES = {
     "fedprox": {"global_params": None},
     "feddiffuse": {"local_params": 0},
     "moon": {"global_params": None, "prev_params": 0},
-    "scaffold": {"c_local": 0, "c_global": None, "scale": 0},
+    "scaffold": {"c_local": 0, "c_global": None, "scale": 0, "dc_w": 0},
 }
 
 
@@ -550,7 +571,7 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                       method: str = "fedphd", sparse: bool = False,
                       groups=None, lr: float = 2e-4, prune_masks=None,
                       max_clients: Optional[int] = None, stored: int = 0,
-                      quant: str = "none"):
+                      quant: str = "none", mesh=None):
     """The vectorized round for ``method``'s clients.
 
     ``sparse`` with ``groups`` adds Omega to the loss (one client-axis
@@ -579,7 +600,9 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
       w_mat:       (E, C) float32 normalized per-edge aggregation rows
       ctx:         the method's anchors by ``CTX_AXES[method]``: (C, ...)
                    rows or one shared copy; FedDiffuse's
-                   ``local_params`` rows replace the start's decoder
+                   ``local_params`` rows replace the start's decoder;
+                   SCAFFOLD's ``dc_w`` are the (C,) weights of its mean
+                   control change
       opt_states:  stacked per-client Adam rows; None starts every
                    client's Adam from zeros
       w_late:      optional (E, C) float32 staleness rows over the late
@@ -599,14 +622,25 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
     (with ``quant``; the caller keeps only the on-time reporters'); and
     for SCAFFOLD ``"c_new"``, the (C, ...) c_i+ = c_i - c + scale_i (x -
     y_i) rows, with x the client's start model, and ``"dc_mean"``, the
-    uniform mean of c_i+ - c_i.
+    ``dc_w``-weighted sum of c_i+ - c_i.
 
     The clients train in chunks (:func:`client_chunk` on a CUDA device,
     all C at once on the CPU), the ctx rows sliced with them; ``stored``
     is the fp32 model copies the caller keeps on the card across rounds,
     which the chunk size leaves room for.  ``max_clients`` replaces that
     choice with chunks of at most ``max_clients`` (tests, and the memory
-    probes of ``chip_smoke.py``)."""
+    probes of ``chip_smoke.py``).
+
+    ``mesh`` (a ``DeviceMesh``; one without ``CLIENT_AXIS`` raises)
+    shards the clients over the ranks of that axis (the module
+    docstring).  Where the axis divides C, every input with a leading
+    client axis (``edge_idx``, ``batches``, ``valid``, ``draws``, the
+    ctx rows, ``opt_states``, ``err``) holds this rank's block of the
+    round's rows (``shard_clients`` of them), and ``w_mat`` and
+    ``w_late`` hold all C columns, of which the engine takes the
+    block's; where it does not, every input holds all C.  The engine is
+    a closure built per call, so the mesh needs no memo key."""
+    require_client_axis(mesh)
     loss_fn = make_loss_fn(cfg, fl, method=method, sparse=sparse,
                            groups=groups, prune_masks=prune_masks)
     train_one = make_train_one(loss_fn, method=method, lr=lr)
@@ -616,10 +650,24 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                ctx=None, opt_states=None, w_late=None, err=None):
         ctx = ctx or {}
         device = tree_leaves(edge_params)[0].device
-        C = valid.shape[0]
         quantized = quant != "none" and err is not None
+        block = client_rows(mesh, np.shape(w_mat)[1])
+        if block is not None:
+            # this rank's columns of the round's weight rows
+            lo, hi = block
+            cols = lambda w: np.ascontiguousarray(
+                np.asarray(w, np.float32)[:, lo:hi])
+            w_mat = cols(w_mat)
+            if w_late is not None:
+                w_late = cols(w_late)
+        # the clients this rank trains (all C off a mesh)
+        m = valid.shape[0]
+        if m != np.shape(w_mat)[1]:
+            raise ValueError(
+                f"the round's client-leading inputs hold {m} rows, but "
+                f"this rank trains {np.shape(w_mat)[1]} clients")
         if max_clients is not None:
-            k = min(max_clients, C)
+            k = min(max_clients, m)
         elif device.type == "cuda":
             k = client_chunk(
                 cfg, tuple(batches["images"].shape),
@@ -628,10 +676,10 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                 opt_rows=opt_states is not None, method=method,
                 stored=stored, quant=quantized, late=w_late is not None)
         else:
-            k = C
+            k = m
         wl = None if w_late is None else host_to_device(
             np.asarray(w_late, np.float32), device)
-        bounds = chunk_bounds(C, k)
+        bounds = chunk_bounds(m, k)
         edge_idx = np.asarray(edge_idx)
         # uploaded once for the round; each chunk slices its rows
         edge_idx_dev = host_to_device(edge_idx.astype(np.int64), device)
@@ -677,7 +725,7 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
                 return
             if name not in out:
                 out[name] = tree_map(
-                    lambda x: x.new_empty((C,) + tuple(x.shape[1:])), tree)
+                    lambda x: x.new_empty((m,) + tuple(x.shape[1:])), tree)
             tree_map(lambda dst, src: dst[a:b].copy_(src), out[name], tree)
 
         for a, b in bounds:
@@ -705,9 +753,8 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
             if method == "scaffold":
                 c_new = scaffold_update(cctx["c_local"], cctx["c_global"],
                                         x, p, cctx["scale"])
-                uni = torch.full((b - a,), 1.0 / C, dtype=torch.float32,
-                                 device=device)
-                part = tree_map(lambda n, o_: combine_leaf(n - o_, uni),
+                part = tree_map(lambda n, o_: combine_leaf(n - o_,
+                                                           cctx["dc_w"]),
                                 c_new, cctx["c_local"])
                 dc = part if dc is None else tree_map(torch.add, dc, part)
                 put("c_new", c_new, a, b)
@@ -719,16 +766,30 @@ def make_round_engine(cfg: ModelConfig, fl: FLConfig, *,
             del p, o, x
         # the edge decodes start + deq when the uplink is quantized
         sent = out.pop("recon") if quantized else out["trained"]
-        out.update(agg=weighted_average_stacked(sent, w_mat),
-                   losses=device_means(torch.cat(step_losses),
-                                       host_to_device(valid, device)))
-        del sent
+        if block is None:
+            agg = weighted_average_stacked(sent, w_mat)
+        else:
+            # the fp32 partial sums over the axis, rounded after the sum
+            w = host_to_device(w_mat, device)
+            group = mesh.get_group(CLIENT_AXIS)
+            agg = tree_map(lambda a, x: cast_like(a, x.dtype), reduce_tree(
+                tree_map(lambda x: contract_leaf(x, w), sent), group), sent)
+        out.update(agg=agg, losses=device_means(
+            torch.cat(step_losses), host_to_device(valid, device)))
+        del sent, agg
         if method not in KEEPS_TRAINED:
             out.pop("trained", None)
         if wl is not None:
             out["late"] = late
         if method == "scaffold":
             out["dc_mean"] = dc
+        if block is not None:
+            for name in ("late", "dc_mean"):
+                if name in out:
+                    out[name] = reduce_tree(out[name], group)
+            for name in ("losses", "trained", "opt", "err", "c_new"):
+                if name in out:
+                    out[name] = gather_rows(out[name], group)
         return out
 
     return engine

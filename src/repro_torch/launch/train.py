@@ -7,8 +7,10 @@ without ``--full``.
   (``--device cpu`` without a card: the kernels' plain versions)
 
 ``--full`` and ``--multi-pod`` train the full-size config on the
-production mesh; the mesh and sharding are not ported (ROADMAP A.13,
-``launch/``), so they raise.
+production mesh.  The mesh (:mod:`repro_torch.launch.mesh`) and its
+layout rules (:mod:`repro_torch.launch.sharding`) exist, but the layers
+do not yet run tensor-parallel, and expert parallelism is missing
+(ROADMAP A.13), so they raise.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--full", action="store_true",
                     help="full-size config on the production mesh "
-                         "(not ported: ROADMAP A.13)")
+                         "(needs tensor-parallel layers and expert "
+                         "parallelism: ROADMAP A.13)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--ckpt", default=None, help="save final params here")
     ap.add_argument("--seed", type=int, default=0)
@@ -46,8 +49,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
     if args.full or args.multi_pod:
         raise NotImplementedError(
-            "--full and --multi-pod need the production mesh and its "
-            "sharding, which are not ported yet (ROADMAP A.13, launch/)")
+            "--full and --multi-pod need tensor-parallel execution of the "
+            "layers (the sharding rules of repro_torch.launch.sharding "
+            "applied in every layer kind) and expert parallelism, which "
+            "are not ported yet (ROADMAP A.13, launch/)")
 
     dev = resolve_device(args.device)
     cfg = smoke_variant(args.arch)

@@ -181,7 +181,9 @@ def ref(inputs):
     off."""
     program = jax.jit(_reference, compiler_options={
         "xla_backend_optimization_level": 0,
-        "xla_llvm_disable_expensive_passes": True})
+        "xla_llvm_disable_expensive_passes": True,
+        # XLA's loop emitters: less compile CPU, the same graph
+        "xla_cpu_use_fusion_emitters": False})
     return jax.tree.map(np.asarray, program(*inputs))
 
 

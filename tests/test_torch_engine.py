@@ -578,7 +578,9 @@ def round_vs_jax():
         # off: the same XLA graph compiles in ~3/4 of the time
         want = jeng.lower(*args, masked=True).compile(compiler_options={
             "xla_backend_optimization_level": 0,
-            "xla_llvm_disable_expensive_passes": True})(*args)
+            "xla_llvm_disable_expensive_passes": True,
+            # XLA's loop emitters: less compile CPU, the same graph
+            "xla_cpu_use_fusion_emitters": False})(*args)
         tb = {k: torch.from_numpy(v) for k, v in batches.items()}
         got = {}
         for label, pm in (("masked", masks), ("unmasked", None)):

@@ -170,8 +170,8 @@ def test_spec_and_presets_match_reference():
 def test_registry_and_refusals(monkeypatch, tmp_path):
     """The reference's methods are all registered (fedphd, fedphd-os, the
     five flat baselines and the two staleness variants); faults, the
-    quantized uplink and obs tracing are accepted, and every unported
-    feature raises, naming the ROADMAP item."""
+    quantized uplink and obs tracing are accepted, and a mesh that is
+    not a DeviceMesh raises, naming the function that builds one."""
     assert registered_methods() == ["fedavg", "fedavg-stale", "feddiffuse",
                                     "fedphd", "fedphd-os", "fedphd-stale",
                                     "fedprox", "moon", "scaffold"]
@@ -184,7 +184,9 @@ def test_registry_and_refusals(monkeypatch, tmp_path):
     clients, _, _ = exp_data.make_clients(SPEC)
     for kw in (dict(fault=FaultSpec(dropout=0.5)), dict(quant="int8")):
         FedPhD(SMOKE_UNET, SPEC.fl, clients, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    # a mesh is a DeviceMesh: the spec's {axis: size} goes through
+    # make_spec_mesh (tests/test_torch_mesh.py)
+    with pytest.raises(TypeError, match="make_spec_mesh"):
         FedPhD(SMOKE_UNET, SPEC.fl, clients, device="cpu", mesh={"data": 2})
     # a disabled fault spec is the fault-free path
     assert FedPhD(SMOKE_UNET, SPEC.fl, clients, device="cpu",

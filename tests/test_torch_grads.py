@@ -41,7 +41,9 @@ ATOL = 1e-5
 # the reference's programs as one jit each at XLA's O0 with LLVM's
 # expensive passes off: run eagerly, JAX compiles every op on its own
 O0 = {"xla_backend_optimization_level": 0,
-      "xla_llvm_disable_expensive_passes": True}
+      "xla_llvm_disable_expensive_passes": True,
+      # XLA's loop emitters: less compile CPU, the same graph
+      "xla_cpu_use_fusion_emitters": False}
 
 
 @pytest.fixture(autouse=True, scope="module")

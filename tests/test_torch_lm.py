@@ -51,7 +51,9 @@ LOGIT_TOL = 1e-4
 # block, prefill and decode) run at XLA's O0 with LLVM's
 # expensive passes off: run eagerly, JAX compiles each op on its own
 O0 = {"xla_backend_optimization_level": 0,
-      "xla_llvm_disable_expensive_passes": True}
+      "xla_llvm_disable_expensive_passes": True,
+      # XLA's loop emitters: less compile CPU, the same graph
+      "xla_cpu_use_fusion_emitters": False}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -227,6 +227,8 @@ def ref(np_params):
     program = jax.jit(_reference, compiler_options={
         "xla_backend_optimization_level": 0,
         "xla_llvm_disable_expensive_passes": True,
+        # XLA's loop emitters: less compile CPU, the same graph
+        "xla_cpu_use_fusion_emitters": False,
         "xla_allow_excess_precision": False})
     rec = jax.tree.map(lambda t: t[0], np_params["cycles"][0]["rec"])
     out = program(np_params, _batch(), _xent_inputs(), _scan_inputs(),

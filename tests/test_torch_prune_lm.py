@@ -239,7 +239,9 @@ def ref(inputs):
     program = jax.jit(lambda p, s, m, f: _reference(p, s, m, kept, f),
                       compiler_options={
                           "xla_backend_optimization_level": 0,
-                          "xla_llvm_disable_expensive_passes": True})
+                          "xla_llvm_disable_expensive_passes": True,
+                          # XLA's loop emitters: less compile CPU
+                          "xla_cpu_use_fusion_emitters": False})
     return jax.tree.map(np.asarray, program(params, scores, masks,
                                             feature_batch))
 

@@ -51,7 +51,9 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(
 # passes off: a SMOKE U-Net forward compiles in less time than the
 # default level takes, and the few runs here do not pay for slower code
 O0 = {"xla_backend_optimization_level": 0,
-      "xla_llvm_disable_expensive_passes": True}
+      "xla_llvm_disable_expensive_passes": True,
+      # XLA's loop emitters: less compile CPU, the same graph
+      "xla_cpu_use_fusion_emitters": False}
 _jax_forward = jax.jit(lambda p, x, t: jax_apply_unet(p, JCFG, x, t),
                        compiler_options=O0)
 # the reference's deterministic DDIM sampler from x_init, one program a

@@ -2,7 +2,8 @@
 """Runs single phases of ``chip_smoke.py`` on the card, for iterating on one.
 
   python3 tools/chip_phases.py [memory] [baselines] [centralized] [bf16]
-                               [faults] [quant] [quantmem] [obs] [sweep]
+                               [mesh] [faults] [quant] [quantmem] [obs]
+                               [sweep]
                                [lmtrain] [lmprofile] [lmgrad] [moe]
                                [moeprofile] [dense] [denseprofile] [rwkv]
                                [rwkvprofile] [prune] [check]
@@ -12,6 +13,8 @@ the order given (default: all): ``memory`` is
 ``baselines_memory_phase``, ``baselines`` is ``baselines_phase`` (its
 three line kinds), ``centralized`` is ``centralized_phase``, ``bf16``
 one fp32 vectorized ``train_run`` and ``train_bf16_phase`` against it,
+``mesh`` one fp32 vectorized ``train_run`` and ``mesh_phase`` against
+it (the cell on a one-rank NCCL mesh, and a MOON round),
 ``faults`` is ``faults_phase``, ``quant`` is ``quant_phase``,
 ``quantmem`` is ``quant_memory_phase``, ``obs`` is ``obs_phase`` (its
 traces in ``build/chip_phases/obs``), ``sweep`` is ``sweep_phase`` (its
@@ -62,7 +65,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("memory", "baselines", "centralized", "bf16", "faults", "quant",
+PHASES = ("memory", "baselines", "centralized", "bf16", "mesh", "faults",
+          "quant",
           "quantmem", "obs", "sweep", "lmtrain", "lmprofile", "lmgrad",
           "moe", "moeprofile", "dense", "denseprofile", "rwkv",
           "rwkvprofile", "prune", "check")
@@ -127,6 +131,13 @@ def main(argv) -> int:
                 fp32 = cs.train_run(CIFAR10_UNET, dev, "vectorized",
                                     counters, zero)
                 cs.merge_tally(tally, cs.train_bf16_phase(
+                    CIFAR10_UNET, dev, counters, zero, fp32))
+            elif phase == "mesh":
+                from repro_torch.configs import CIFAR10_UNET
+                fp32 = cs.train_run(CIFAR10_UNET, dev, "vectorized",
+                                    counters, zero)
+                fp32["state"] = cs._host_state(fp32.pop("trainer"))
+                cs.merge_tally(tally, cs.mesh_phase(
                     CIFAR10_UNET, dev, counters, zero, fp32))
             elif phase == "faults":
                 cs.merge_tally(tally, cs.faults_phase(dev, counters, zero))
